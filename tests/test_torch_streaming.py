@@ -1,0 +1,303 @@
+"""PyTorch port vs JAX package: the streaming engine, end to end.
+
+The port's ``EngineCore`` runs on ``device='cpu'`` (its plain version of
+the K1 step) against the JAX package's ``EngineCore`` on the CPU, both fed
+the same numpy inputs: float64 to 1e-12, float32 to 2e-5, with identical
+output lengths.  The engine on the card is checked in
+``test_torch_cuda.py``.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from go_audio_resampler_tpu.engine.plan import plan_engine as jplan_engine
+from go_audio_resampler_tpu.engine.streaming import EngineCore as JEngine
+from go_audio_resampler_tpu.filterdesign import Quality as JQuality
+import go_audio_resampler_tpu_torch as gart
+from go_audio_resampler_tpu_torch.engine import EngineCore, plan_from_arrays
+from go_audio_resampler_tpu_torch.engine.plan import plan_engine
+from go_audio_resampler_tpu_torch.filterdesign import Quality
+from go_audio_resampler_tpu_torch.ops import fused
+
+TOL = {np.float32: 2e-5, np.float64: 1e-12}
+#: (input rate, output rate, quality): CD->DAT, DAT->CD, and a plan whose
+#: operator the engine superframes (two periods per frame).
+PLANS = [(44100, 48000, 3), (48000, 44100, 3), (44100, 48000, 4)]
+BATCH, BLOCK = 3, 512
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _engines(rates_q, dtype, batch=BATCH, block=BLOCK):
+    """The JAX engine and the port's, on one plan (carried across as
+    arrays, so both run the very same filter bank)."""
+    jp = jplan_engine(rates_q[0], rates_q[1], JQuality(rates_q[2]))
+    tp = plan_from_arrays({f: getattr(jp, f)
+                           for f in jp.__dataclass_fields__})
+    return (JEngine(jp, batch=batch, block=block, dtype=dtype),
+            EngineCore(tp, batch=batch, block=block, dtype=dtype,
+                       device="cpu"))
+
+
+def _splits(rng, n, max_chunk):
+    cuts, at = [], 0
+    while at < n:
+        step = int(rng.integers(0, max_chunk + 1))
+        cuts.append((at, min(n, at + step)))
+        at += step
+    return cuts
+
+
+def _close(a, b, dtype):
+    assert a.shape == b.shape
+    np.testing.assert_allclose(a, b, rtol=0, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("rates_q", PLANS)
+def test_process_flush_random_chunks(rates_q, dtype):
+    je, te = _engines(rates_q, dtype)
+    assert te.block == je.block and te.get_latency() == je.get_latency()
+    rng = np.random.default_rng(11)
+    n = 6000                                # > SCAN_BLOCKS blocks in total
+    x = rng.normal(size=(BATCH, n)).astype(dtype)
+    outs_j, outs_t = [], []
+    for a, b in _splits(rng, n, 2500) + [(0, 0)]:
+        yj, yt = np.asarray(je.process(x[:, a:b])), te.process(x[:, a:b])
+        assert yt.dtype == dtype and yj.shape == yt.shape
+        outs_j.append(yj)
+        outs_t.append(yt)
+    outs_j.append(np.asarray(je.flush()))
+    outs_t.append(te.flush())
+    yj, yt = np.concatenate(outs_j, 1), np.concatenate(outs_t, 1)
+    assert yt.shape[1] == te.plan.lengths.canonical(n)
+    _close(yt, yj, dtype)
+    assert te.get_statistics() == je.get_statistics()
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("rates_q", PLANS)
+def test_device_mode(rates_q, dtype):
+    je, te = _engines(rates_q, dtype)
+    mult = te.device_chunk_multiple
+    assert mult == je.device_chunk_multiple
+    rng = np.random.default_rng(12)
+    widths = [3 * mult, 0, mult, 17 * mult, 2 * mult]
+    x = rng.normal(size=(BATCH, sum(widths))).astype(dtype)
+    outs_j, outs_t, at = [], [], 0
+    for w in widths:
+        yj = np.asarray(je.process_device(jnp.asarray(x[:, at:at + w])))
+        yt = te.process_device(torch.from_numpy(x[:, at:at + w]))
+        assert isinstance(yt, torch.Tensor) and yt.device.type == "cpu"
+        assert yt.shape == yj.shape
+        outs_j.append(yj)
+        outs_t.append(yt.numpy())
+        at += w
+    outs_j.append(np.asarray(je.flush_device()))
+    outs_t.append(te.flush_device().numpy())
+    yj, yt = np.concatenate(outs_j, 1), np.concatenate(outs_t, 1)
+    assert yt.shape[1] == te.plan.lengths.canonical(x.shape[1])
+    _close(yt, yj, dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("rates_q", PLANS[:2])
+def test_start_from_same_nonzero_carry(rates_q, dtype):
+    """Past the start-up ramp (whose outputs the engine drops), both
+    engines resume from one given carry."""
+    je, te = _engines(rates_q, dtype)
+    rng = np.random.default_rng(13)
+    x0 = np.zeros((BATCH, 2 * te.block), dtype)
+    je.process(x0)
+    te.process(x0)
+    carry = rng.normal(size=tuple(te.state.shape)).astype(dtype)
+    assert carry.shape[1] > 0
+    je.state = jnp.asarray(carry)
+    te.set_carry(carry)
+    x = rng.normal(size=(BATCH, 2000)).astype(dtype)
+    yj = np.concatenate([np.asarray(je.process(x)),
+                         np.asarray(je.flush())], 1)
+    yt = np.concatenate([te.process(x), te.flush()], 1)
+    _close(yt, yj, dtype)
+    # The carry shows in the output: the same run from a zero carry differs.
+    te.reset()
+    te.process(x0)
+    y0 = np.concatenate([te.process(x), te.flush()], 1)
+    assert y0.shape == yt.shape and np.abs(y0 - yt).max() > 1e-3
+    with pytest.raises(ValueError, match="carry must be"):
+        te.set_carry(carry[:, 1:])
+
+
+@pytest.mark.parametrize("n", [0, 1, 146, 147, 1000, 4703, 4704])
+def test_exact_lengths(n):
+    je, te = _engines(PLANS[0], np.float64, batch=1)
+    x = np.random.default_rng(n).normal(size=n)
+    yj = np.concatenate([np.asarray(je.process(x)),
+                         np.asarray(je.flush())], 1)
+    yt = np.concatenate([te.process(x), te.flush()], 1)
+    assert yt.shape == yj.shape == (1, te.plan.lengths.canonical(n))
+    _close(yt, yj, np.float64)
+
+
+@pytest.mark.parametrize("out", ["host", "device"])
+def test_stream_generator(out):
+    je, te = _engines(PLANS[0], np.float64)
+    rng = np.random.default_rng(15)
+    chunks = [rng.normal(size=(BATCH, w)) for w in (100, 700, 5, 1500, 33)]
+    yj = np.concatenate([np.asarray(y) for y in je.stream(chunks, out=out)],
+                        1)
+    got = list(te.stream(chunks, out=out))
+    assert all(isinstance(y, np.ndarray if out == "host" else torch.Tensor)
+               for y in got)
+    yt = np.concatenate([np.asarray(y) for y in got], 1)
+    assert yt.shape[1] == te.plan.lengths.canonical(sum(c.shape[1]
+                                                        for c in chunks))
+    _close(yt, yj, np.float64)
+
+
+def test_chunking_invariance():
+    """process() with random splits and process_device() in one chunk give
+    the same canonical stream."""
+    rates_q, dtype = PLANS[0], np.float64
+    x = np.random.default_rng(16).normal(size=(BATCH, 147 * 40))
+    _, a = _engines(rates_q, dtype)
+    rng = np.random.default_rng(17)
+    ya = np.concatenate([a.process(x[:, i:j])
+                         for i, j in _splits(rng, x.shape[1], 900)]
+                        + [a.flush()], 1)
+    _, b = _engines(rates_q, dtype)
+    yb = torch.cat([b.process_device(torch.from_numpy(x)),
+                    b.flush_device()], 1).numpy()
+    _close(ya, yb, dtype)
+
+
+def test_reset_and_flush_rules():
+    _, te = _engines(PLANS[0], np.float64)
+    x = np.random.default_rng(18).normal(size=(BATCH, 3000))
+    y1 = np.concatenate([te.process(x), te.flush()], 1)
+    assert te.flush().shape == (BATCH, 0)
+    with pytest.raises(RuntimeError, match="after flush"):
+        te.process(x)
+    with pytest.raises(RuntimeError, match="after flush"):
+        te.process_device(torch.zeros((BATCH, 147), dtype=torch.float64))
+    te.reset()
+    y2 = np.concatenate([te.process(x), te.flush()], 1)
+    assert np.array_equal(y1, y2)
+    te.reset()
+    te.process(x[:, :100])                   # leaves host input buffered
+    with pytest.raises(RuntimeError, match="host-buffered"):
+        te.process_device(torch.zeros((BATCH, 147), dtype=torch.float64))
+    te.reset()
+    with pytest.raises(ValueError, match="not a multiple"):
+        te.process_device(torch.zeros((BATCH, 100), dtype=torch.float64))
+    with pytest.raises(ValueError, match="expected 3 streams"):
+        te.process(np.zeros((2, 10)))
+
+
+def test_mono_input_broadcasts():
+    je, te = _engines(PLANS[0], np.float64)
+    x = np.random.default_rng(19).normal(size=2000)
+    yj = np.concatenate([np.asarray(je.process(x)),
+                         np.asarray(je.flush())], 1)
+    yt = np.concatenate([te.process(x), te.flush()], 1)
+    _close(yt, yj, np.float64)
+    assert np.array_equal(yt[0], yt[2])
+
+
+def test_introspection_matches():
+    je, te = _engines(PLANS[1], np.float32)
+    assert te.get_ratio() == je.get_ratio()
+    assert te.get_latency() == je.get_latency()
+    assert te.estimate_output(44100) == je.estimate_output(44100)
+    assert te._flush_extra_limit() == je._flush_extra_limit()
+    assert te._device_params() == je._device_params()
+    assert te.get_statistics() == {"samplesIn": 0, "samplesOut": 0}
+
+
+def test_process_steps_through_the_fused_wrapper(monkeypatch):
+    """Every step of the engine goes through ops.fused.fused_resample."""
+    calls = []
+    real = fused.fused_resample
+
+    def spy(data, r_t, **kw):
+        calls.append((tuple(data.shape), kw["n_frames"]))
+        return real(data, r_t, **kw)
+
+    monkeypatch.setattr(fused, "fused_resample", spy)
+    _, te = _engines(PLANS[0], np.float32)
+    te.process(np.zeros((BATCH, 9 * te.block), np.float32))
+    te.flush()
+    nf = te.block // 147
+    assert calls[0] == ((BATCH, te._rational_carry + 8 * te.block), 8 * nf)
+    assert calls[1] == ((BATCH, te._rational_carry + te.block), nf)
+
+
+# -- guards --------------------------------------------------------------------
+
+def test_port_imports_no_jax():
+    code = ("import sys, go_audio_resampler_tpu_torch as g\n"
+            "import go_audio_resampler_tpu_torch.engine.streaming\n"
+            "import go_audio_resampler_tpu_torch.ops.fused\n"
+            "import go_audio_resampler_tpu_torch.utils\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')) or m == "
+            "'go_audio_resampler_tpu' or "
+            "m.startswith('go_audio_resampler_tpu.')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_package_exports():
+    assert set(gart.__all__) == {"plan_engine", "EngineCore", "Quality"}
+    assert gart.Quality is Quality
+
+
+def test_default_device_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EngineCore(plan_engine(44100, 48000, Quality.HIGH))
+
+
+@pytest.mark.parametrize("rates,kw", [
+    ((44100, 48000, Quality.QUICK), {}),        # cubic
+    ((48000, 96000, Quality.HIGH), {}),         # dft_up
+    ((96000, 48000, Quality.HIGH), {}),         # decimate
+    ((44100, 48001, Quality.HIGH), {}),         # non-exact walk
+    ((48000, 44100, Quality.HIGH), {"strict_antialias": True}),
+])
+def test_unported_topologies_raise(rates, kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        EngineCore(plan_engine(*rates, **kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw,exc", [
+    ({"dispatch": "pallas"}, NotImplementedError),
+    ({"dispatch": "xla"}, NotImplementedError),
+    ({"dispatch": "tune"}, NotImplementedError),
+    ({"dispatch": "bogus"}, ValueError),
+    ({"precision": "high"}, NotImplementedError),
+    ({"precision": "default"}, NotImplementedError),
+    ({"precision": "bogus"}, ValueError),
+    ({"dtype": np.int32}, ValueError),
+])
+def test_unsupported_knobs_raise(kw, exc):
+    plan = plan_engine(44100, 48000, Quality.HIGH)
+    with pytest.raises(exc):
+        EngineCore(plan, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("precision", ["auto", "highest"])
+def test_supported_precisions(precision):
+    e = EngineCore(plan_engine(44100, 48000, Quality.HIGH), device="cpu",
+                   precision=precision, dtype=torch.float64)
+    assert e.dtype == torch.float64 and e.np_dtype == np.float64
