@@ -1,14 +1,16 @@
 """PyTorch/CUDA port of go_audio_resampler_tpu.
 
 Mirrors the JAX package's module layout; the JAX package stays the
-reference and this package imports none of it.  This slice carries the
-streaming engine for exact-rational two-stage plans (44.1k <-> 48k) with
-its fused banded-resample CUDA kernel (``ops/csrc/fused_resample.cu``).
+reference and this package imports none of it.  It carries the streaming
+engine for exact-rational two-stage plans (44.1k <-> 48k) and integer
+decimation, its time-major twin, and the one-shot entry point, on three
+hand-written CUDA kernels (``ops/csrc/*.cu``).
 """
 
-from .engine import EngineCore, plan_engine
+from .engine import EngineCore, TimeMajorEngine, oneshot, plan_engine
 from .filterdesign import Quality
 
 __version__ = "0.1.0"
 
-__all__ = ["EngineCore", "plan_engine", "Quality"]
+__all__ = ["EngineCore", "TimeMajorEngine", "oneshot", "plan_engine",
+           "Quality"]

@@ -1,11 +1,20 @@
-"""Engine: topology planning, banded-operator builders and streaming."""
+"""Engine: topology planning, banded-operator builders, one-shot and
+streaming execution.
+
+As in the JAX package, the function ``oneshot`` is exported under its
+module's name: import the module itself with
+``importlib.import_module("go_audio_resampler_tpu_torch.engine.oneshot")``.
+"""
 
 from .plan import (EnginePlan, EngineConfigError, plan_engine,
                    plan_from_arrays, MIN_RATIO, MAX_RATIO)
 from .counts import LengthModel
+from .oneshot import oneshot
 from .streaming import EngineCore
+from .tmajor import TimeMajorEngine
 
 __all__ = [
     "EnginePlan", "EngineConfigError", "plan_engine", "plan_from_arrays",
-    "MIN_RATIO", "MAX_RATIO", "LengthModel", "EngineCore",
+    "MIN_RATIO", "MAX_RATIO", "LengthModel", "oneshot", "EngineCore",
+    "TimeMajorEngine",
 ]

@@ -1,20 +1,221 @@
-"""Banded-operator builders shared by the one-shot and streaming paths.
+"""One-shot resampling, and the banded-operator builders it shares with
+the streaming paths.
 
-This slice of the port carries only what the streaming engine's fused
-exact-rational step needs: ``superframe`` and ``_fused_rational_matrix``
-with its cache.  Both are float64 numpy copies of the JAX package's
-functions and return bit-equal arrays.  The one-shot entry point itself
-is not ported yet (ROADMAP.md, queue 1 item 7).
+Counterpart of the JAX package's ``engine/oneshot.py``.  For a known input
+length everything but the signal is fixed on the host: the flush padding,
+the canonical output length, the whole fixed-point phase walk and the
+banded matrices, all computed in exact numpy int64 / float64 and bit-equal
+to the JAX package's.  The device work is then one kernel launch per call:
+
+- exact-rational two-stage plans: one periodic banded operator over the
+  raw input, the K1 kernel (``ops/fused.py``);
+- integer decimation: a banded per-period matrix, K1;
+- integer upsampling (``dft_up``): the polyphase prestage through the
+  banded convolution of ``ops/convolve.py``, K1;
+- the general (non-exact) two-stage walk and the cubic (QUICK) walk: one
+  banded matrix per tile of 256 outputs at a data-dependent start, the K3
+  kernel (``ops/general.py``).
+
+On CPU tensors each kernel's wrapper computes its plain version.  Plans
+with the strict-antialias prefilter (``aa_taps > 0``) and the FFT-routed
+decimation are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math
+import os
+from collections import OrderedDict
 
 import numpy as np
+import torch
 
 from ..filterdesign.params import PHASE_FRAC_BITS
+from ..ops import fused, general
+from .counts import CubicSim
 from .plan import EnginePlan
+from .stages import prestage_apply
+
+_FRAC = 1 << PHASE_FRAC_BITS
+
+#: Crossover for routing the decimate topology through FFT overlap-save
+#: (taps >= this).  The default lies above the 8191-tap design cap, so the
+#: banded matmul takes every plan unless GAR_DECIM_FFT_MIN_TAPS lowers it.
+DECIM_FFT_MIN_TAPS = int(os.environ.get('GAR_DECIM_FFT_MIN_TAPS', 16384))
+
+_STRICT_AA = ("strict-antialias plans (aa_taps > 0) need pipeline/fused."
+              "compose, not ported yet (ROADMAP.md, \"Left to port\" 4)")
+_FFT_DECIM = ("FFT-routed decimation (decim_taps >= DECIM_FFT_MIN_TAPS) "
+              "needs engine/fftstage, not ported yet (ROADMAP.md, "
+              "\"Left to port\" 5)")
+
+
+def _poly_walk_host(plan: EnginePlan, count: int):
+    """Host-side exact walk: (div, phase, frac) for outputs 0..count-1."""
+    at = plan.at0 + np.arange(count, dtype=np.int64) * plan.step
+    hi = at >> PHASE_FRAC_BITS
+    div = hi // plan.num_phases
+    phase = hi % plan.num_phases
+    frac = at & (_FRAC - 1)
+    return div.astype(np.int64), phase.astype(np.int64), frac.astype(np.int64)
+
+
+GENERAL_TILE = 256
+
+# LRU cache of host-side banded matrices, keyed on the plan FINGERPRINT
+# (not id: see EnginePlan.fingerprint) and bounded in bytes: a service
+# hitting many distinct input lengths otherwise grows without limit (each
+# (plan, length) entry is tens of MB).
+_GENERAL_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
+_GENERAL_CACHE_BYTES = 0
+GENERAL_CACHE_LIMIT = int(os.environ.get(
+    'GAR_TPU_MATRIX_CACHE_MB', '512')) * (1 << 20)
+
+
+def _cache_get(key):
+    val = _GENERAL_CACHE.get(key)
+    if val is not None:
+        _GENERAL_CACHE.move_to_end(key)
+    return val
+
+
+def _cache_put(key, val):
+    global _GENERAL_CACHE_BYTES
+    _GENERAL_CACHE[key] = val
+    _GENERAL_CACHE_BYTES += sum(a.nbytes for a in val)
+    while _GENERAL_CACHE_BYTES > GENERAL_CACHE_LIMIT and len(_GENERAL_CACHE) > 1:
+        _, old = _GENERAL_CACHE.popitem(last=False)
+        _GENERAL_CACHE_BYTES -= sum(a.nbytes for a in old)
+    return val
+
+
+def _general_matrices(plan: EnginePlan, count: int,
+                      tile: int = GENERAL_TILE):
+    """Host-side banded tile matrices for the general path (cached).
+
+    Returns (starts [n_tiles] int64, M [n_tiles, tile, Wx] float64) in
+    the PRESTAGE-COMPOSED x domain: output t*tile + p reads
+    ``xext[starts[t] : starts[t] + Wx] @ M[t, p]`` where ``xext`` is the
+    raw input left-padded by T1-1 (the prestage ramp).  Composing the 2x
+    prestage into the matrices removes the upsampled stream u: the device
+    reads x once instead of writing and reading a 2x intermediate.
+
+    The composition runs as two class-einsums: the u->x change of basis
+    depends only on the tile's u-start parity, so tiles split into F
+    classes sharing one [W_u, Wx] prestage matrix each.
+    """
+    key = (plan.fingerprint, count, tile)
+    cached = _cache_get(key)
+    if cached is not None:
+        return cached
+    div, phase, frac = _poly_walk_host(plan, count)
+    x = (frac.astype(np.float64) / _FRAC)[:, None]
+    K_host = (plan.bank_a[phase] + x * (plan.bank_b[phase] +
+              x * (plan.bank_c[phase] + x * plan.bank_d[phase])))
+    t2 = plan.poly_taps
+    padded = -(-count // tile) * tile
+    div_p = np.pad(div, (0, padded - count), mode='edge')
+    K_p = np.pad(K_host, ((0, padded - count), (0, 0)))
+    div_r = div_p.reshape(-1, tile)                # [n_tiles, P]
+    starts_u = div_r[:, 0].copy()                  # [n_tiles] u-domain
+    offs = div_r - starts_u[:, None]               # >= 0, monotone
+    w_u = int(offs[:, -1].max()) + t2
+    n_tiles = div_r.shape[0]
+    M_u = np.zeros((n_tiles, tile, w_u), dtype=np.float64)
+    rows = np.repeat(np.arange(n_tiles), tile)
+    cols = np.tile(np.arange(tile), n_tiles)
+    for t in range(t2):
+        M_u[rows, cols, offs.ravel() + t] = K_p[:, t]
+
+    # Compose the prestage: u[m] = sum_tau pre[m % F, tau] * xext[m//F + tau]
+    # => per u-start class c = start_u % F, the change of basis is
+    # P_c[m, (m+c)//F + tau] = pre[(m+c) % F, tau], shared by all tiles
+    # of that class; starts_x = starts_u // F.
+    F, T1 = plan.factor, plan.pre_taps
+    pre = plan.pre_coeffs
+    w_x = (w_u - 1 + F - 1) // F + T1
+    starts_x = starts_u // F
+    M = np.empty((n_tiles, tile, w_x), dtype=np.float64)
+    for c in range(F):
+        sel = np.nonzero(starts_u % F == c)[0]
+        if not len(sel):
+            continue
+        P_c = np.zeros((w_u, w_x), dtype=np.float64)
+        for m in range(w_u):
+            base = (m + c) // F
+            P_c[m, base:base + T1] = pre[(m + c) % F]
+        M[sel] = np.einsum('tpu,uw->tpw', M_u[sel], P_c)
+    return _cache_put(key, (starts_x, M))
+
+
+def _cubic_matrices(plan: EnginePlan, count: int,
+                    tile: int = GENERAL_TILE):
+    """Banded tile matrices for the cubic (QUICK) walk (cached).
+
+    Same structure as _general_matrices with 4-tap rows: output j reads
+    histbuf[i_j .. i_j+3] (histbuf = x left-padded by 3) against the
+    Catmull-Rom basis evaluated at frac_j.  The basis weights are
+    extracted numerically by pushing unit taps through the hermite
+    formula, so the matmul is bit-faithful to it.
+    """
+    key = ('cubic', plan.fingerprint, count, tile)
+    cached = _cache_get(key)
+    if cached is not None:
+        return cached
+    at = np.arange(count, dtype=np.int64) * plan.cubic_step
+    i = (at >> CubicSim.FRAC_BITS).astype(np.int64)
+    fr = (at & ((1 << CubicSim.FRAC_BITS) - 1)).astype(np.float64) \
+        / (1 << CubicSim.FRAC_BITS)
+    # Basis: y = a x^3 + b x^2 + c x + s0 with a, b, c linear in taps.
+    K = np.empty((count, 4), dtype=np.float64)
+    for k in range(4):
+        sm1, s0, s1, s2 = (1.0 if k == 0 else 0.0), (1.0 if k == 1 else 0.0), \
+            (1.0 if k == 2 else 0.0), (1.0 if k == 3 else 0.0)
+        b = 0.5 * (s1 + sm1) - s0
+        a = (1.0 / 6.0) * (s2 - s1 + sm1 - s0 - 4.0 * b)
+        c = s1 - s0 - a - b
+        K[:, k] = ((a * fr + b) * fr + c) * fr + s0
+    padded = -(-count // tile) * tile
+    div_p = np.pad(i, (0, padded - count), mode='edge')
+    K_p = np.pad(K, ((0, padded - count), (0, 0)))
+    div_r = div_p.reshape(-1, tile)
+    starts = div_r[:, 0].copy()
+    offs = div_r - starts[:, None]
+    w_band = int(offs[:, -1].max()) + 4
+    n_tiles = div_r.shape[0]
+    M = np.zeros((n_tiles, tile, w_band), dtype=np.float64)
+    rows = np.repeat(np.arange(n_tiles), tile)
+    cols = np.tile(np.arange(tile), n_tiles)
+    for t in range(4):
+        M[rows, cols, offs.ravel() + t] = K_p[:, t]
+    return _cache_put(key, (starts, M))
+
+
+_DECIM_CACHE: dict = {}
+DECIM_PERIOD = 256  # outputs per frame for the decimation frames-matmul
+#: Outputs per frame on the kernel path (the JAX package's Pallas period).
+PALLAS_DECIM_PERIOD = 128
+
+
+def _decim_matrix(plan: EnginePlan, period: int = DECIM_PERIOD):
+    """Banded per-period matrix for integer decimation.
+
+    Output j reads x~[j*M : j*M + T]; grouping P outputs per frame gives
+    frames of width W = (P-1)*M + T with stride P*M and a constant
+    [P, W] matrix R[r, r*M : r*M + T] = coeffs, one matmul per frame
+    instead of a long strided convolution.  Returns (R, P, P*M), cached.
+    """
+    key = (plan.fingerprint, period)
+    if key in _DECIM_CACHE:
+        return _DECIM_CACHE[key]
+    m, t = plan.factor, plan.decim_taps
+    p = period
+    w = (p - 1) * m + t
+    r = np.zeros((p, w), dtype=np.float64)
+    for row in range(p):
+        r[row, row * m:row * m + t] = plan.decim_coeffs
+    _DECIM_CACHE[key] = (r, p, p * m)
+    return _DECIM_CACHE[key]
 
 
 def superframe(r: np.ndarray, ipx: int, *, max_overlap: float = 1.5,
@@ -74,9 +275,7 @@ def _fused_rational_matrix(plan: EnginePlan):
     ported yet: they raise NotImplementedError.
     """
     if plan.aa_taps:
-        raise NotImplementedError(
-            "strict-antialias plans (aa_taps > 0) need pipeline/fused."
-            "compose, not ported yet (ROADMAP.md, queue 1 item 2)")
+        raise NotImplementedError(_STRICT_AA)
     key = plan.fingerprint
     if key in _FUSED_CACHE:
         return _FUSED_CACHE[key]
@@ -117,3 +316,212 @@ def _fused_rational_matrix(plan: EnginePlan):
     R = R[:, :max_j + 1]
     _FUSED_CACHE[key] = (R, P2, Ipx, 0)
     return _FUSED_CACHE[key]
+
+
+# -- device side ----------------------------------------------------------
+
+def _pad_right(x: torch.Tensor, need: int) -> torch.Tensor:
+    """x [S, n] zero-extended to at least ``need`` columns, contiguous."""
+    if x.shape[1] >= need:
+        return x.contiguous()
+    return torch.cat([x, x.new_zeros((x.shape[0], need - x.shape[1]))],
+                     dim=1)
+
+
+def _pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """x [S, n] with ``left`` and ``right`` zero columns around it."""
+    z = x.new_zeros
+    return torch.cat([z((x.shape[0], left)), x, z((x.shape[0], right))],
+                     dim=1)
+
+
+def _matrix_t(r: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    """A host float64 [P, W] operator as R_t [W, P] on the device."""
+    return torch.as_tensor(np.ascontiguousarray(r.T), dtype=dtype,
+                           device=device)
+
+
+def _banded_tiles_apply(u: torch.Tensor, starts_d: torch.Tensor,
+                        m_d: torch.Tensor, last_start: int,
+                        count: int) -> torch.Tensor:
+    """Apply per-tile banded matrices: the general/cubic one-shot core.
+
+    ``m_d`` is [n_tiles, w_band, tile] on ``u``'s device.  The K3 kernel
+    on the card reads each tile's window of ``u`` in place; on the CPU its
+    plain version gathers the windows.
+    """
+    w_band, tile = int(m_d.shape[1]), int(m_d.shape[2])
+    u = _pad_right(u, last_start + w_band)
+    y = general.general_resample(u, m_d, starts_d, w_band=w_band, tile=tile)
+    return y[:, :count]
+
+
+def _poly_apply_general(plan: EnginePlan, xext: torch.Tensor, count: int,
+                        aux=None) -> torch.Tensor:
+    """Banded batched matmul for non-exact-rational ratios (K3).
+
+    The walk is quasi-periodic, so no single per-period matrix exists,
+    but within a tile of outputs the windows span a bounded range, so
+    each tile gets its own banded matrix (prestage composed in; see
+    _general_matrices) over windows of ``xext`` (the raw input
+    left-padded by T1-1).
+    """
+    if aux is None:
+        aux = _upload(_general_matrices(plan, count), xext.dtype,
+                      xext.device)
+    starts_d, m_d = aux
+    # The last output's u-domain window start (the walk's last div), in x.
+    at_last = plan.at0 + (count - 1) * plan.step
+    last_start = ((at_last >> PHASE_FRAC_BITS) // plan.num_phases
+                  // plan.factor)
+    return _banded_tiles_apply(xext, starts_d, m_d, last_start, count)
+
+
+def _decim_apply_matmul(plan: EnginePlan, xs: torch.Tensor,
+                        count: int) -> torch.Tensor:
+    """Integer decimation as frames times one banded matrix (K1).
+
+    The same banded structure as the rational fused path: frames of width
+    Wx advance Ipx per P outputs.  The kernel path uses the JAX package's
+    Pallas period (128); the plain path its XLA period (256).
+    """
+    period = PALLAS_DECIM_PERIOD if xs.device.type == "cuda" else DECIM_PERIOD
+    R, P, Ipx = _decim_matrix(plan, period)
+    wx = R.shape[1]
+    n_frames = -(-count // P)
+    xs = _pad_right(xs, (n_frames - 1) * Ipx + wx)
+    y = fused.fused_resample(xs, _matrix_t(R, xs.dtype, xs.device), ipx=Ipx,
+                             wx=wx, p2=P, n_frames=n_frames)
+    return y[:, :count]
+
+
+def _poly_apply_rational_fused(plan: EnginePlan, x: torch.Tensor,
+                               count: int) -> torch.Tensor:
+    """One banded matmul for the whole two-stage cascade (K1).
+
+    ``x`` is the raw input: this function applies the coverage zeros on
+    the right itself.  No intermediate upsampled stream or frames are
+    materialized.
+    """
+    R, P2, Ipx, _lam = _fused_rational_matrix(plan)
+    R, Ipx = superframe(R, Ipx)
+    P2, wx = R.shape
+    n_frames = -(-count // P2)
+    x = _pad_right(x, (n_frames - 1) * Ipx + wx)
+    y = fused.fused_resample(x, _matrix_t(R, x.dtype, x.device), ipx=Ipx,
+                             wx=wx, p2=P2, n_frames=n_frames)
+    return y[:, :count]
+
+
+def _upload(starts_m, dtype: torch.dtype, device):
+    """(starts, M [n_tiles, tile, W]) from the host to the device as
+    (starts int64, M [n_tiles, W, tile] in ``dtype``), the layout K3
+    reads."""
+    starts, m = starts_m
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    m_t = np.ascontiguousarray(m.transpose(0, 2, 1), dtype=np_dtype)
+    return (torch.as_tensor(starts, dtype=torch.int64, device=device),
+            torch.from_numpy(m_t).to(device))
+
+
+def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device):
+    """Host-prepared device arguments of the one-shot apply.
+
+    The general and cubic paths' banded tile matrices (tens of MB per
+    (plan, length)) are designed on the host, cached there, and uploaded
+    here; the other topologies need none.
+    """
+    if plan.lengths.canonical(n) <= 0 or n <= 0:
+        return ()
+    if plan.kind == 'two_stage' and not plan.is_rational_exact:
+        if plan.aa_taps:
+            raise NotImplementedError(_STRICT_AA)
+        return _upload(_general_matrices(plan, plan.lengths.canonical(n)),
+                       dtype, device)
+    if plan.kind == 'cubic':
+        return _upload(_cubic_matrices(plan, plan.lengths.canonical(n)),
+                       dtype, device)
+    return ()
+
+
+def _oneshot_apply(plan: EnginePlan, x: torch.Tensor, aux=()) -> torch.Tensor:
+    """The device part of :func:`oneshot`: x [S, n] in its final dtype
+    and device, ``aux`` from :func:`_oneshot_aux`."""
+    n = x.shape[1]
+    lm = plan.lengths
+    canonical = lm.canonical(n)
+    if canonical <= 0 or n == 0:
+        return x.new_zeros((x.shape[0], max(canonical, 0)))
+    z = lm.flush_pad(n)
+
+    if plan.kind == 'cubic':
+        if not aux:
+            aux = _upload(_cubic_matrices(plan, canonical), x.dtype,
+                          x.device)
+        starts_d, m_d = aux
+        w_band = int(m_d.shape[1])
+        i_last = ((canonical - 1) * plan.cubic_step) >> CubicSim.FRAC_BITS
+        histbuf = _pad(x, 3, max(0, i_last + w_band + 1 - (n + 3)))
+        # Tile starts are <= the last window index; i_last bounds them.
+        return _banded_tiles_apply(histbuf, starts_d, m_d, i_last, canonical)
+
+    if plan.kind == 'dft_up':
+        t1, f = plan.pre_taps, plan.factor
+        if f == 1:
+            return x  # unity ratio: pass-through (dft_stage.go:57-59)
+        xext = _pad(x, t1 - 1, z)
+        coeffs = torch.as_tensor(plan.pre_coeffs, dtype=x.dtype,
+                                 device=x.device)
+        u = prestage_apply(coeffs, xext, f)
+        drop = lm.drop_prefix()
+        return u[:, drop:drop + canonical]
+
+    if plan.kind == 'decimate':
+        t, m = plan.decim_taps, plan.factor
+        if t >= DECIM_FFT_MIN_TAPS:
+            raise NotImplementedError(_FFT_DECIM)
+        # windows at j*M over (x 0^z ...): the canonical grid
+        need = (canonical - 1) * m + t
+        return _decim_apply_matmul(plan, _pad(x, 0, max(z, need - n)),
+                                   canonical)
+
+    # two_stage
+    if plan.is_rational_exact:
+        return _poly_apply_rational_fused(plan, x, canonical)
+    if plan.aa_taps:
+        raise NotImplementedError(_STRICT_AA)
+    # The prestage is composed into the banded tile matrices (x domain);
+    # the device never materializes the 2x intermediate stream.
+    xext = _pad(x, plan.pre_taps - 1, z)
+    return _poly_apply_general(plan, xext, canonical, aux if aux else None)
+
+
+def oneshot(plan: EnginePlan, x, dtype=None, device='cuda') -> torch.Tensor:
+    """Resample x [S, n] -> y [S, canonical(n)] in one call.
+
+    Equivalent to the reference's Process+Flush one-shot stream
+    (convenience.go:204-229).  ``x`` is a numpy array or a tensor; the
+    result is a tensor on ``device``: float32 on the card (the type its
+    kernels take), float32 or float64 on the CPU (``dtype``, by default
+    the input's).  Without a GPU the default ``device='cuda'`` raises;
+    pass ``device='cpu'`` to run the kernels' plain versions.
+    """
+    from .streaming import _torch_dtype
+
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError("oneshot: CUDA is not available; pass "
+                           "device='cpu' to run on the CPU")
+    if len(np.shape(x)) != 2:
+        raise ValueError(
+            f"oneshot expects [streams, samples], got {tuple(np.shape(x))}")
+    if dtype is None:
+        dtype = torch.float32 if device.type == 'cuda' else (
+            x.dtype if isinstance(x, torch.Tensor) else np.asarray(x).dtype)
+    dtype = _torch_dtype(dtype)
+    if device.type == 'cuda' and dtype != torch.float32:
+        raise ValueError("oneshot: the CUDA kernels take float32; float64 "
+                         "runs on device='cpu'")
+    x = torch.as_tensor(x).to(device=device, dtype=dtype)
+    aux = _oneshot_aux(plan, int(x.shape[1]), dtype, device)
+    return _oneshot_apply(plan, x, aux)

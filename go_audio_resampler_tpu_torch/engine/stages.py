@@ -1,8 +1,11 @@
-"""Framing helpers for the banded steps.
+"""Framing helpers and the prestage of the banded paths.
 
-Only ``gather_windows`` is ported so far: the fused exact-rational step
-reads its frames at a fixed stride, so the JAX package's clipped gather
-becomes a strided ``unfold`` view, which copies nothing.
+The JAX package's ``gather_windows`` comes in two forms here: the fused
+banded steps read their frames at a fixed stride, which is a strided
+``unfold`` view that copies nothing (``gather_windows``), while the
+one-shot paths read windows at arbitrary starts through the clipped gather
+(``gather_windows_at``).  ``prestage_apply`` is the integer-factor
+polyphase upsampler of the one-shot DFT topology.
 """
 
 from __future__ import annotations
@@ -24,3 +27,31 @@ def gather_windows(signal: torch.Tensor, n_windows: int, stride: int,
             f"gather_windows: {n_windows} windows of width {width} at "
             f"stride {stride} need {need} samples, got {signal.shape[1]}")
     return signal[:, :need].unfold(1, width, stride)
+
+
+def gather_windows_at(signal: torch.Tensor, starts: torch.Tensor,
+                      width: int) -> torch.Tensor:
+    """windows[s, c, t] = signal[s, starts[c] + t]  (clipped gather).
+
+    Indices past either end of ``signal`` read its first or last sample,
+    as the JAX package's ``gather_windows`` does.  Returns a copy
+    [S, len(starts), width].
+    """
+    idx = (starts.to(device=signal.device, dtype=torch.int64)[:, None]
+           + torch.arange(width, device=signal.device)[None, :])
+    return signal[:, idx.clamp(0, signal.shape[1] - 1)]
+
+
+def prestage_apply(coeffs: torch.Tensor, xext: torch.Tensor, factor: int,
+                   precision: str = 'auto') -> torch.Tensor:
+    """u[s, i*F + p] = dot(xext[s, i:i+T1], coeffs[p]) for all valid i.
+
+    ``coeffs`` [F, T1] are tap-reversed (design time), so this correlation
+    is the reference's polyphase convolution.  On the card it is the K1
+    kernel through the banded lowering of ``ops/convolve.py``.  Only the
+    exact tier runs in this port: ``precision`` is 'auto' or 'highest'.
+    """
+    from ..ops.convolve import conv1d_poly_interleaved
+
+    del factor  # implied by coeffs.shape[0]
+    return conv1d_poly_interleaved(xext, coeffs, precision)

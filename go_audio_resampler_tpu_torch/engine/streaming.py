@@ -1,9 +1,10 @@
 """Streaming engine: stateful Process/Flush over fixed-size blocks.
 
-PyTorch counterpart of the JAX package's ``engine/streaming.py``.  This
-slice ports the topology of the main path: exact-rational two-stage plans
-(e.g. 44.1k <-> 48k), which stream as one periodic banded operator through
-the fused banded step, i.e. the K1 kernel (``ops/fused.py``) on the card.
+PyTorch counterpart of the JAX package's ``engine/streaming.py``.  Two
+topologies are ported, both streaming one periodic banded operator
+through the fused banded step, i.e. the K1 kernel (``ops/fused.py``) on
+the card: exact-rational two-stage plans (e.g. 44.1k <-> 48k), and
+integer decimation (e.g. 48k -> 16k, the ML-ingest path).
 
 The device side is one plain function ``(carry, block) -> (carry', y, n)``
 with static output counts; the host wrapper feeds whole blocks from an
@@ -23,7 +24,8 @@ import torch
 
 from ..ops import fused
 from ..pipeline.buffer import SampleFIFO
-from .oneshot import _fused_rational_matrix, superframe
+from .oneshot import (DECIM_FFT_MIN_TAPS, _FFT_DECIM, _decim_matrix,
+                      _fused_rational_matrix, superframe)
 from .plan import EnginePlan
 
 #: dispatch and precision values the JAX engine knows but this port does
@@ -59,31 +61,21 @@ def _banded_frames_apply(data: torch.Tensor, r_t: torch.Tensor, ipx: int,
 
 
 def _fused_banded_step(r_t, carry, x, ipx, wx, p2):
-    """Shared body of the fused banded-matmul streaming steps.
+    """The streaming step of the fused banded topologies (the JAX
+    package's ``_step_rational_fused`` and ``_step_decim_fused``).
 
     Frames period-aligned windows of [carry ++ block] and applies the
     per-period matrix; with the block a multiple of the input period
-    ``ipx``, every step emits exactly (B/ipx)*p2 samples.  Returns
-    ``(carry', y, n_valid)``; the new carry is a contiguous copy, so the
-    step's input can be freed.
+    ``ipx``, every step emits exactly (B/ipx)*p2 samples.  The leading
+    outputs of the stream are the zero-carry ramp, which the wrapper
+    drops.  Returns ``(carry', y, n_valid)``; the new carry is a
+    contiguous copy, so the step's input can be freed.
     """
     b = x.shape[1]
     n_frames = b // ipx
     data = torch.cat([carry.to(x.dtype), x], dim=1)
     y = _banded_frames_apply(data, r_t, ipx, wx, p2, n_frames)
     return data[:, b:].contiguous(), y, n_frames * p2
-
-
-def _step_rational_fused(r_t, carry, x, ipx, wx, p2):
-    """Fused streaming step for exact-rational two-stage plans.
-
-    The whole cascade is one periodic banded operator (see
-    oneshot._fused_rational_matrix).  With the block size a multiple of
-    the input period Ipx, every step emits exactly (B/Ipx)*P2 samples.
-    The leading (C/Ipx)*P2 outputs of the stream are the zero-carry
-    convolution ramp; the wrapper drops them.
-    """
-    return _fused_banded_step(r_t, carry, x, ipx, wx, p2)
 
 
 def pipelined_stream(eng, chunks, out: str, granule: int):
@@ -143,8 +135,8 @@ class EngineCore:
     tensor axis through one kernel launch per step.
 
     Parameters:
-      plan:   built engine plan (filters + topology); this slice runs
-              exact-rational two-stage plans only
+      plan:   built engine plan (filters + topology); the port runs
+              exact-rational two-stage plans and integer decimation
       batch:  number of parallel streams S
       block:  internal micro-block size B (input samples per step), rounded
               up to a multiple of the operator's input period
@@ -197,11 +189,13 @@ class EngineCore:
 
     def _build_constants(self):
         p = self.plan
+        if p.kind == 'decimate':
+            self._build_decim()
+            return
         if p.kind != 'two_stage' or not p.is_rational_exact:
             where = {
                 'cubic': "queue 1 item 8 (cubic stage)",
                 'dft_up': "queue 1 item 6 (dft_up)",
-                'decimate': "queue 1 item 6 (decimate)",
                 'banded': "queue 1 item 6 (banded composite)",
                 'two_stage': "queue 1 item 8 (non-exact polyphase walk)",
             }.get(p.kind, "queue 1")
@@ -209,7 +203,7 @@ class EngineCore:
                 f"EngineCore: topology {p.kind!r} is not ported yet "
                 f"(ROADMAP.md, {where})")
         # Fused streaming: the whole cascade as one periodic banded matmul
-        # (see _step_rational_fused).  The zero carry C >= Wx-Ipx with
+        # (oneshot._fused_rational_matrix).  The zero carry C >= Wx-Ipx with
         # C == lam (mod Ipx) places the canonical grid (C-lam)/Ipx periods
         # into the core stream; the wrapper drops that ramp.
         r, p2, ipx, lam = _fused_rational_matrix(p)
@@ -228,14 +222,39 @@ class EngineCore:
             max(self._rational_wx - ipx - lam, 0), ipx) * ipx
         self._drop_override = ((self._rational_carry - lam) // ipx) * p2
 
+    def _build_decim(self):
+        p = self.plan
+        if p.decim_taps >= DECIM_FFT_MIN_TAPS:
+            raise NotImplementedError(f"EngineCore: {_FFT_DECIM}")
+        r, _, ipx = _decim_matrix(p)
+        r, ipx = superframe(r, ipx, kf_cap=max(1, self.block // ipx))
+        self._decim_rt = torch.as_tensor(
+            np.ascontiguousarray(r.T), dtype=self.dtype, device=self.device)
+        self._decim_p2 = r.shape[0]
+        self._decim_ipx = ipx
+        self._decim_wx = r.shape[1]
+        self.block = _ceil_div(self.block, ipx) * ipx
+        # Canonical window j reads x[j*M : j*M+T] (no zero samples); a zero
+        # carry of C = round_up(T-1, M) shifts the local grid by C/M ramp
+        # outputs which the wrapper drops.
+        self._decim_carry = _ceil_div(p.decim_taps - 1, p.factor) * p.factor
+        self._drop_override = self._decim_carry // p.factor
+
+    def _banded(self) -> tuple[torch.Tensor, int, int, int, int]:
+        """(R_t, ipx, wx, p2, carry length) of this plan's fused step."""
+        if self.plan.kind == 'decimate':
+            return (self._decim_rt, self._decim_ipx, self._decim_wx,
+                    self._decim_p2, self._decim_carry)
+        return (self._rational_rt, self._rational_ipx, self._rational_wx,
+                self._rational_p2, self._rational_carry)
+
     def _init_state(self) -> torch.Tensor:
-        return torch.zeros((self.batch, self._rational_carry),
+        return torch.zeros((self.batch, self._banded()[4]),
                            dtype=self.dtype, device=self.device)
 
     def _step(self, state, x):
-        return _step_rational_fused(
-            self._rational_rt, state, x, ipx=self._rational_ipx,
-            wx=self._rational_wx, p2=self._rational_p2)
+        r_t, ipx, wx, p2, _ = self._banded()
+        return _fused_banded_step(r_t, state, x, ipx=ipx, wx=wx, p2=p2)
 
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -261,7 +280,7 @@ class EngineCore:
         hold after some input.  Lets two engines start from one state.
         """
         carry = np.asarray(carry)
-        want = (self.batch, self._rational_carry)
+        want = (self.batch, self._banded()[4])
         if carry.shape != want:
             raise ValueError(f"carry must be {want}, got {carry.shape}")
         self.state = self._to_device(carry)
@@ -317,11 +336,12 @@ class EngineCore:
     def device_chunk_multiple(self) -> int:
         """Input-chunk granularity for :meth:`process_device`: the fused
         operator's input period."""
-        return self._rational_ipx
+        return self._banded()[1]
 
     def _device_params(self) -> tuple[int, int]:
         """(input period, outputs per period) for the static-count step."""
-        return self._rational_ipx, self._rational_p2
+        _, ipx, _, p2, _ = self._banded()
+        return ipx, p2
 
     def _emit_device(self, core_out: torch.Tensor, n_out: int,
                      limit: int | None) -> torch.Tensor:
@@ -449,7 +469,8 @@ class EngineCore:
     def _flush_extra_limit(self) -> int:
         """Max extra zero blocks flush may legally need (exact holdback):
         the banded carry plus one window."""
-        hold = self._rational_carry + self._rational_wx
+        _, _, wx, _, carry = self._banded()
+        hold = carry + wx
         return _ceil_div(hold, self.block) + 2
 
     def flush(self) -> np.ndarray:

@@ -1,0 +1,126 @@
+"""Batched 1-D FIR convolution: the banded lowering (K1) and the frames
+lowering.
+
+Counterpart of the JAX package's ``ops/convolve.py``: one primitive
+``conv1d_poly(x, kernels, stride)`` computing
+
+    y[s, f, i] = sum_t x[s, i*stride + t] * kernels[f, t]
+
+and its interleaved form for the polyphase upsampler.  Two lowerings:
+
+- ``banded``: P outputs per frame read a shared (P-1)*stride + T window
+  against a banded [W, P*F] matrix (``band_matrix``), which is exactly the
+  fused-resampling structure, so on the card it is one launch of the K1
+  kernel (``ops/fused.py``) with P = 128, as the JAX package's TPU path
+  runs its Pallas kernel.  CUDA tensors take it.
+- ``frames``: windows as an ``unfold`` view, then one ``einsum``.  CPU
+  tensors take it, as the JAX package does on its CPU backend.
+
+The JAX package's ``set_conv_impl`` override and its ``xla`` lowering have
+no counterpart: the tensor's device picks the lowering.  Only the exact
+matmul tier runs in this port: ``precision`` is 'auto' or 'highest'.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import fused
+
+#: outputs per frame of the banded lowering on the card
+BAND_PERIOD = 128
+
+_UNPORTED_PRECISION = ('high', 'default')
+
+
+def _check_precision(precision: str) -> None:
+    if precision in _UNPORTED_PRECISION:
+        raise NotImplementedError(
+            f"precision={precision!r} is not ported yet (ROADMAP.md, "
+            "queue 2 item 4: the precision tiers and the dispatch gate)")
+    if precision not in ('auto', 'highest'):
+        raise ValueError(
+            f"precision must be 'auto' or 'highest', got {precision!r}")
+
+
+def band_matrix(kernels: torch.Tensor, p: int, stride: int,
+                dtype: torch.dtype, device) -> tuple[torch.Tensor, int]:
+    """R_t [W, p*F] with R_t[ii*stride + tau, ii*F + ff] = kernels[ff, tau].
+
+    W = (p-1)*stride + T.  Every (row, column) pair is set at most once,
+    so the matrix holds the kernels' values exactly.
+    """
+    f, t = kernels.shape
+    w = (p - 1) * stride + t
+    ii = torch.arange(p, device=device).repeat_interleave(f * t)
+    ff = torch.arange(f, device=device).repeat_interleave(t).repeat(p)
+    tau = torch.arange(t, device=device).repeat(p * f)
+    r = torch.zeros((w, p * f), dtype=dtype, device=device)
+    r[ii * stride + tau, ii * f + ff] = kernels.to(device=device,
+                                                   dtype=dtype)[ff, tau]
+    return r, w
+
+
+def _conv_frames(x: torch.Tensor, kernels: torch.Tensor,
+                 stride: int) -> torch.Tensor:
+    """Frames lowering: [S, n] -> [S, F, n_out]."""
+    t = kernels.shape[1]
+    windows = x.unfold(1, t, stride)                     # [S, n_out, T]
+    return torch.einsum('sct,ft->sfc', windows, kernels.to(x.dtype))
+
+
+def _conv_banded(x: torch.Tensor, kernels: torch.Tensor, stride: int,
+                 interleaved: bool = False) -> torch.Tensor:
+    """Banded lowering (see the module docstring): one K1 call.
+
+    With ``interleaved`` the result is the flat [S, n_out*F] stream
+    y[s, i*F + ff] (the polyphase-upsampling order), the band's natural
+    output layout.
+    """
+    s, n = x.shape
+    f, t = kernels.shape
+    n_out = (n - t) // stride + 1
+    p = min(BAND_PERIOD, max(n_out, 1))
+    nf = -(-n_out // p)
+    ipx, p2 = p * stride, p * f
+    r_t, w = band_matrix(kernels, p, stride, x.dtype, x.device)
+    need = (nf - 1) * ipx + w
+    if n < need:
+        x = torch.cat([x, x.new_zeros((s, need - n))], dim=1)
+    y3 = fused.fused_resample(x.contiguous(), r_t, ipx=ipx, wx=w, p2=p2,
+                              n_frames=nf)                  # [S, nf*p*F]
+    if interleaved:
+        # y3[s, k*p*F + ii*F + ff] = filter ff at output k*p + ii: already
+        # the polyphase-interleaved order.
+        return y3[:, :n_out * f]
+    y = y3.reshape(s, nf, p, f).permute(0, 3, 1, 2).reshape(s, f, nf * p)
+    return y[:, :, :n_out]
+
+
+def conv1d_poly(x: torch.Tensor, kernels: torch.Tensor, stride: int = 1,
+                precision: str = 'auto') -> torch.Tensor:
+    """y[s, f, i] = sum_t x[s, i*stride + t] * kernels[f, t]  ('VALID').
+
+    ``kernels`` rows are tap-reversed filters (design-time convention), so
+    this correlation implements the reference's convolution direction.
+    The K1 kernel on a CUDA tensor, the frames lowering on a CPU tensor.
+    """
+    _check_precision(precision)
+    if x.device.type == "cuda":
+        return _conv_banded(x, kernels, stride)
+    return _conv_frames(x, kernels, stride)
+
+
+def conv1d_poly_interleaved(x: torch.Tensor, kernels: torch.Tensor,
+                            precision: str = 'auto') -> torch.Tensor:
+    """u[s, i*F + ff] = sum_t x[s, i + t] * kernels[ff, t] (stride 1).
+
+    The polyphase-upsampled stream in its natural interleaved order.  The
+    banded lowering emits this layout directly; the frames lowering
+    transposes its [S, F, n_out] output.
+    """
+    _check_precision(precision)
+    if x.device.type == "cuda":
+        return _conv_banded(x, kernels, 1, interleaved=True)
+    out = _conv_frames(x, kernels, 1)                    # [S, F, n_out]
+    return out.transpose(1, 2).reshape(x.shape[0], -1)

@@ -7,6 +7,7 @@ only on the card: ``test_torch_cuda.py`` holds it against this plain
 version there.
 """
 
+import importlib
 import os
 
 import jax.numpy as jnp
@@ -17,11 +18,14 @@ import torch
 from go_audio_resampler_tpu.engine import stages as jstages
 from go_audio_resampler_tpu.engine import streaming as jstreaming
 from go_audio_resampler_tpu.ops import pallas_fused as pf
-from go_audio_resampler_tpu_torch.engine import oneshot as toneshot
 from go_audio_resampler_tpu_torch.engine import plan as tplan
 from go_audio_resampler_tpu_torch.engine import stages as tstages
 from go_audio_resampler_tpu_torch.filterdesign import Quality as TQuality
 from go_audio_resampler_tpu_torch.ops import _build, fused
+
+# engine/__init__ exports the function oneshot under the module's name.
+toneshot = importlib.import_module(
+    "go_audio_resampler_tpu_torch.engine.oneshot")
 
 TOL = {np.float32: 2e-5, np.float64: 1e-12}
 PLANS = [(44100, 48000, 3), (48000, 44100, 3), (44100, 48000, 4)]

@@ -13,12 +13,13 @@ import pytest
 from go_audio_resampler_tpu.engine import plan as jplan
 from go_audio_resampler_tpu.filterdesign import Quality as JQuality
 from go_audio_resampler_tpu_torch.engine import plan as tplan
-from go_audio_resampler_tpu_torch.engine import oneshot as toneshot
 from go_audio_resampler_tpu_torch.filterdesign import Quality as TQuality
 
-# The JAX package's engine/__init__ re-exports the function oneshot under
-# the module's name.
+# Both packages' engine/__init__ re-export the function oneshot under the
+# module's name.
 joneshot = importlib.import_module("go_audio_resampler_tpu.engine.oneshot")
+toneshot = importlib.import_module(
+    "go_audio_resampler_tpu_torch.engine.oneshot")
 
 RATES = [(44100, 48000), (48000, 44100), (48000, 96000)]
 EXACT_RATES = RATES[:2]

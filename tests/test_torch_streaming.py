@@ -7,6 +7,7 @@ output lengths.  The engine on the card is checked in
 ``test_torch_cuda.py``.
 """
 
+import importlib
 import os
 import subprocess
 import sys
@@ -25,10 +26,17 @@ from go_audio_resampler_tpu_torch.engine.plan import plan_engine
 from go_audio_resampler_tpu_torch.filterdesign import Quality
 from go_audio_resampler_tpu_torch.ops import fused
 
+streaming = importlib.import_module(
+    "go_audio_resampler_tpu_torch.engine.streaming")
+
 TOL = {np.float32: 2e-5, np.float64: 1e-12}
 #: (input rate, output rate, quality): CD->DAT, DAT->CD, and a plan whose
 #: operator the engine superframes (two periods per frame).
 PLANS = [(44100, 48000, 3), (48000, 44100, 3), (44100, 48000, 4)]
+#: Integer decimation: the ML-ingest 48k->16k and 96k->48k, HIGH and
+#: VERY_HIGH.
+DECIM_PLANS = [(48000, 16000, 3), (96000, 48000, 3), (48000, 16000, 4),
+               (96000, 48000, 4)]
 BATCH, BLOCK = 3, 512
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -59,7 +67,7 @@ def _close(a, b, dtype):
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("rates_q", PLANS)
+@pytest.mark.parametrize("rates_q", PLANS + DECIM_PLANS)
 def test_process_flush_random_chunks(rates_q, dtype):
     je, te = _engines(rates_q, dtype)
     assert te.block == je.block and te.get_latency() == je.get_latency()
@@ -81,7 +89,7 @@ def test_process_flush_random_chunks(rates_q, dtype):
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("rates_q", PLANS)
+@pytest.mark.parametrize("rates_q", PLANS + DECIM_PLANS)
 def test_device_mode(rates_q, dtype):
     je, te = _engines(rates_q, dtype)
     mult = te.device_chunk_multiple
@@ -106,7 +114,7 @@ def test_device_mode(rates_q, dtype):
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("rates_q", PLANS[:2])
+@pytest.mark.parametrize("rates_q", PLANS[:2] + DECIM_PLANS[:1])
 def test_start_from_same_nonzero_carry(rates_q, dtype):
     """Past the start-up ramp (whose outputs the engine drops), both
     engines resume from one given carry."""
@@ -219,6 +227,45 @@ def test_introspection_matches():
     assert te.get_statistics() == {"samplesIn": 0, "samplesOut": 0}
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("rates_q", DECIM_PLANS)
+def test_decimation_at_block_2048_matches_jax(rates_q, dtype):
+    """At the default block the decimation operator is superframed; the
+    port's constants equal the JAX engine's, and so does the stream."""
+    je, te = _engines(rates_q, dtype, block=2048)
+    assert (te.block, te._decim_carry, te._drop_override) == (
+        je.block, je._decim_carry, je._drop_override)
+    assert te._device_params() == je._device_params()
+    assert te._flush_extra_limit() == je._flush_extra_limit()
+    assert np.array_equal(te._decim_rt.numpy(), np.asarray(je._decim_rt))
+    rng = np.random.default_rng(14)
+    x = rng.normal(size=(BATCH, 8000)).astype(dtype)
+    yj = np.concatenate([np.asarray(je.process(x[:, :3333])),
+                         np.asarray(je.process(x[:, 3333:])),
+                         np.asarray(je.flush())], 1)
+    yt = np.concatenate([te.process(x[:, :3333]), te.process(x[:, 3333:]),
+                         te.flush()], 1)
+    assert yt.shape[1] == te.plan.lengths.canonical(8000)
+    _close(yt, yj, dtype)
+
+
+def test_decimation_geometry_48k_16k():
+    """48k -> 16k HIGH: T = 1349 taps, R [256, 2114] over Ipx 768; the
+    superframe makes it [512, 2882] over 1536, the block 3072."""
+    _, te = _engines(DECIM_PLANS[0], np.float32, block=2048)
+    assert te.plan.decim_taps == 1349
+    assert tuple(te._decim_rt.shape) == (2882, 512)
+    assert (te._decim_ipx, te._decim_wx, te._decim_p2) == (1536, 2882, 512)
+    assert te.block == 3072 and te.device_chunk_multiple == 1536
+    assert (te._decim_carry, te._drop_override) == (1350, 450)
+
+
+def test_fft_decimation_raises(monkeypatch):
+    monkeypatch.setattr(streaming, "DECIM_FFT_MIN_TAPS", 1)
+    with pytest.raises(NotImplementedError, match="fftstage"):
+        EngineCore(plan_engine(48000, 16000, Quality.HIGH), device="cpu")
+
+
 def test_process_steps_through_the_fused_wrapper(monkeypatch):
     """Every step of the engine goes through ops.fused.fused_resample."""
     calls = []
@@ -243,6 +290,11 @@ def test_port_imports_no_jax():
     code = ("import sys, go_audio_resampler_tpu_torch as g\n"
             "import go_audio_resampler_tpu_torch.engine.streaming\n"
             "import go_audio_resampler_tpu_torch.ops.fused\n"
+            "import go_audio_resampler_tpu_torch.ops.tmajor\n"
+            "import go_audio_resampler_tpu_torch.ops.general\n"
+            "import go_audio_resampler_tpu_torch.ops.convolve\n"
+            "import go_audio_resampler_tpu_torch.engine.tmajor\n"
+            "import go_audio_resampler_tpu_torch.engine.oneshot\n"
             "import go_audio_resampler_tpu_torch.utils\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == "
@@ -257,8 +309,11 @@ def test_port_imports_no_jax():
 
 
 def test_package_exports():
-    assert set(gart.__all__) == {"plan_engine", "EngineCore", "Quality"}
+    assert set(gart.__all__) == {"plan_engine", "EngineCore",
+                                 "TimeMajorEngine", "oneshot", "Quality"}
     assert gart.Quality is Quality
+    assert callable(gart.oneshot) and gart.oneshot.__module__ == (
+        "go_audio_resampler_tpu_torch.engine.oneshot")
 
 
 def test_default_device_without_cuda_raises():
@@ -271,7 +326,7 @@ def test_default_device_without_cuda_raises():
 @pytest.mark.parametrize("rates,kw", [
     ((44100, 48000, Quality.QUICK), {}),        # cubic
     ((48000, 96000, Quality.HIGH), {}),         # dft_up
-    ((96000, 48000, Quality.HIGH), {}),         # decimate
+    ((16000, 48000, Quality.HIGH), {}),         # dft_up, factor 3
     ((44100, 48001, Quality.HIGH), {}),         # non-exact walk
     ((48000, 44100, Quality.HIGH), {"strict_antialias": True}),
 ])
