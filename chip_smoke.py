@@ -105,6 +105,23 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_kernels(fn, iters: int) -> list[tuple[str, float, float]]:
+    """(name, device ms per call, launches per call) of every CUDA kernel
+    that ``iters`` calls of ``fn`` ran, from ``torch.profiler``, the
+    longest first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / iters / 1e3, e.count / iters)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sorted(rows, key=lambda r: -r[1])
+
+
 def operator(q, rate_in=RATE_IN, rate_out=RATE_OUT, block=BLOCK):
     """(R_t float32 [wx, p2] on the card, ipx, wx, p2) as the engine uses it."""
     import torch
@@ -125,7 +142,7 @@ def decim_operator():
     from go_audio_resampler_tpu_torch import EngineCore, Quality, plan_engine
     eng = EngineCore(plan_engine(DECIM_IN, DECIM_OUT, Quality.HIGH),
                      block=2048, device="cpu")
-    r_t, ipx, wx, p2, _ = eng._banded()
+    r_t, ipx, wx, p2, _ = eng._band
     return r_t.to("cuda"), ipx, wx, p2
 
 
@@ -593,19 +610,21 @@ def decim_path(gen, card: str) -> tuple[int, int]:
     eng = EngineCore(plan, batch=DECIM_STREAMS, block=2048)
     tm = TimeMajorEngine(plan, batch=DECIM_STREAMS, block=2048)
     block, mult = eng.block, eng.device_chunk_multiple
-    require((block, mult, tm.block, tm.chunk_multiple, eng._decim_carry)
+    require((block, mult, tm.block, tm.chunk_multiple, eng._band.carry)
             == (3072, 1536, 3072, 1536, DECIM_CARRY),
-            f"block {block}, multiple {mult}, carry {eng._decim_carry}")
+            f"block {block}, multiple {mult}, carry {eng._band.carry}")
     n = DECIM_SAMPLES
     canonical = plan.lengths.canonical(n)
     x = 0.5 * torch.randn((DECIM_STREAMS, n), generator=gen, device="cuda")
     xt = x.t().contiguous()
     chunks = [(a, min(n, a + block)) for a in range(0, n, block)]
     expected = expected_launches(plan, n, len(chunks), mult,
-                                 eng._decim_p2, block, eng._drop_override)
+                                 eng._band.p2, block, eng._drop_override)
     counts, walls, ys = [], [], []
     for e, data, dim in ((eng, lambda a, b: x[:, a:b], 1),
                          (tm, lambda a, b: xt[a:b], 0)):
+        # Set-up, as on the main path: reserve the outputs' memory.
+        torch.empty((DECIM_STREAMS, canonical + block), device="cuda")
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
@@ -670,14 +689,21 @@ def oneshot_phase(gen, card: str) -> tuple[int, int]:
         canonical = plan.lengths.canonical(n)
         x = 0.5 * torch.randn((ONESHOT_STREAMS, n), generator=gen,
                               device="cuda")
-        # Host design of the matrices (cold host cache), then their upload.
+        # Host design of the operators (cold host caches), then their
+        # upload.
         osm._GENERAL_CACHE.clear()
         osm._GENERAL_CACHE_BYTES = 0
+        osm._FUSED_CACHE.clear()
+        osm._DECIM_CACHE.clear()
         t0 = time.perf_counter()
         if plan.kind == "two_stage" and not plan.is_rational_exact:
             host = osm._general_matrices(plan, canonical)
         elif plan.kind == "cubic":
             host = osm._cubic_matrices(plan, canonical)
+        elif plan.kind == "two_stage":
+            host = osm._fused_rational_matrix(plan)[:1]
+        elif plan.kind == "decimate":
+            host = osm._decim_matrix(plan, osm.PALLAS_DECIM_PERIOD)[:1]
         else:
             host = ()
         t1 = time.perf_counter()
@@ -703,15 +729,32 @@ def oneshot_phase(gen, card: str) -> tuple[int, int]:
         want = oneshot(plan, x[:4].cpu().double().numpy(), device="cpu")
         err = float(np.abs(y[:4].cpu().double().numpy()
                            - want.numpy()).max())
-        device_ms = cuda_ms(lambda: osm._oneshot_apply(plan, x, aux), 10,
-                            warmup=1)
+        # The device part alone, with the operators already uploaded: the
+        # kernel's device time and every kernel's from torch.profiler, and
+        # the span of the call on CUDA events (its host work included).
+        def apply():
+            return osm._oneshot_apply(plan, x, aux)
+
+        span_ms = cuda_ms(apply, 10, warmup=1)
+        kernels = device_kernels(apply, 5)
+        kname = "general_resample_kernel(" if want_k3 else \
+            "fused_resample_kernel("
+        kernel_ms = sum(ms for key, ms, _ in kernels if kname in key)
+        busy_ms = sum(ms for _, ms, _ in kernels)
+        require(kernel_ms > 0, f"{name}: no {kname[:-1]} in the trace")
         mbytes = sum(a.nbytes for a in host) / 1e6
         print(f"  one-shot {name}: [{ONESHOT_STREAMS}, {n}] -> "
               f"{tuple(y.shape)} == canonical; launches K1 {k1}, K3 {k3}; "
               f"max |cuda f32 - cpu f64| over 4 streams = {err:.3g}; host "
               f"design {t1 - t0:.3f} s ({mbytes:.1f} MB of float64 "
-              f"matrices), upload {t2 - t1:.4f} s, entry point "
-              f"{wall:.4f} s, device {device_ms:.4f} ms on {card}")
+              f"operators), upload {t2 - t1:.4f} s, entry point "
+              f"{wall:.4f} s on {card}")
+        print(f"  one-shot {name}: device {kname[:-1]} {kernel_ms:.5f} ms, "
+              f"all kernels {busy_ms:.5f} ms (torch.profiler); "
+              f"_oneshot_apply span {span_ms:.5f} ms (CUDA events)")
+        for key, ms, count in kernels:
+            print(f"  one-shot {name}: {ms:.5f} ms, {count:g} per call: "
+                  f"{key[:80]}")
         require(err <= ENGINE_TOL, f"{name}: {err} > {ENGINE_TOL}")
     return totals[0], totals[1]
 
@@ -747,8 +790,6 @@ def profile_phase(gen, steps: int = 40) -> None:
     decimation paths: host enqueue time, device time, and the device time
     of each kernel from ``torch.profiler``."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from go_audio_resampler_tpu_torch import (EngineCore, Quality,
                                               TimeMajorEngine, plan_engine)
 
@@ -787,22 +828,16 @@ def profile_phase(gen, steps: int = 40) -> None:
         end.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e3
         device = start.elapsed_time(end) / steps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in kernels) / steps / 1e3
+        kernels = device_kernels(run, 1)
+        busy = sum(ms for _, ms, _ in kernels) / steps
         print(f"  profile, {label}: {steps} warm steps of {s} streams x "
               f"{blk}: host enqueue {(t1 - t0) / steps * 1e3:.5f} ms/step, "
               f"wall {wall:.5f} ms/step, device {device:.5f} ms/step; "
               f"kernels busy {busy:.5f} ms/step under the profiler (device "
               f"idle share {max(0.0, 1 - busy / wall):.3f})")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
-            print(f"  profile, {label}: "
-                  f"{e.self_device_time_total / steps / 1e3:.5f} ms/step, "
-                  f"{e.count / steps:g} per step: {e.key[:90]}")
+        for name, ms, count in kernels:
+            print(f"  profile, {label}: {ms / steps:.5f} ms/step, "
+                  f"{count / steps:g} per step: {name[:90]}")
         del x
 
 

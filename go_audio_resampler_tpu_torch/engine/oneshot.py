@@ -24,7 +24,6 @@ decimation are not ported yet and raise ``NotImplementedError``.
 from __future__ import annotations
 
 import math
-import os
 from collections import OrderedDict
 
 import numpy as np
@@ -39,9 +38,10 @@ from .stages import prestage_apply
 _FRAC = 1 << PHASE_FRAC_BITS
 
 #: Crossover for routing the decimate topology through FFT overlap-save
-#: (taps >= this).  The default lies above the 8191-tap design cap, so the
-#: banded matmul takes every plan unless GAR_DECIM_FFT_MIN_TAPS lowers it.
-DECIM_FFT_MIN_TAPS = int(os.environ.get('GAR_DECIM_FFT_MIN_TAPS', 16384))
+#: (taps >= this).  It lies above the 8191-tap design cap, so the banded
+#: matmul takes every plan.  A constant: the FFT route is not ported, so a
+#: lower crossover could only turn a working plan into an error.
+DECIM_FFT_MIN_TAPS = 16384
 
 _STRICT_AA = ("strict-antialias plans (aa_taps > 0) need pipeline/fused."
               "compose, not ported yet (ROADMAP.md, \"Left to port\" 4)")
@@ -68,8 +68,7 @@ GENERAL_TILE = 256
 # (plan, length) entry is tens of MB).
 _GENERAL_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
 _GENERAL_CACHE_BYTES = 0
-GENERAL_CACHE_LIMIT = int(os.environ.get(
-    'GAR_TPU_MATRIX_CACHE_MB', '512')) * (1 << 20)
+GENERAL_CACHE_LIMIT = 512 << 20
 
 
 def _cache_get(key):
@@ -357,18 +356,15 @@ def _banded_tiles_apply(u: torch.Tensor, starts_d: torch.Tensor,
 
 
 def _poly_apply_general(plan: EnginePlan, xext: torch.Tensor, count: int,
-                        aux=None) -> torch.Tensor:
+                        aux) -> torch.Tensor:
     """Banded batched matmul for non-exact-rational ratios (K3).
 
     The walk is quasi-periodic, so no single per-period matrix exists,
     but within a tile of outputs the windows span a bounded range, so
     each tile gets its own banded matrix (prestage composed in; see
     _general_matrices) over windows of ``xext`` (the raw input
-    left-padded by T1-1).
+    left-padded by T1-1).  ``aux`` is (starts, M) on the device.
     """
-    if aux is None:
-        aux = _upload(_general_matrices(plan, count), xext.dtype,
-                      xext.device)
     starts_d, m_d = aux
     # The last output's u-domain window start (the walk's last div), in x.
     at_last = plan.at0 + (count - 1) * plan.step
@@ -377,39 +373,21 @@ def _poly_apply_general(plan: EnginePlan, xext: torch.Tensor, count: int,
     return _banded_tiles_apply(xext, starts_d, m_d, last_start, count)
 
 
-def _decim_apply_matmul(plan: EnginePlan, xs: torch.Tensor,
-                        count: int) -> torch.Tensor:
-    """Integer decimation as frames times one banded matrix (K1).
+def _banded_apply(x: torch.Tensor, count: int, aux) -> torch.Tensor:
+    """One periodic banded operator over the input (K1): the JAX
+    package's ``_poly_apply_rational_fused`` and ``_decim_apply_matmul``.
 
-    The same banded structure as the rational fused path: frames of width
-    Wx advance Ipx per P outputs.  The kernel path uses the JAX package's
-    Pallas period (128); the plain path its XLA period (256).
+    Frames of ``x`` of width Wx advance Ipx per P outputs; ``aux`` is
+    (R_t [Wx, P], Ipx) from :func:`_oneshot_aux`.  ``x`` is zero-extended
+    on the right to cover the last frame; no intermediate stream or
+    frames are materialized.
     """
-    period = PALLAS_DECIM_PERIOD if xs.device.type == "cuda" else DECIM_PERIOD
-    R, P, Ipx = _decim_matrix(plan, period)
-    wx = R.shape[1]
-    n_frames = -(-count // P)
-    xs = _pad_right(xs, (n_frames - 1) * Ipx + wx)
-    y = fused.fused_resample(xs, _matrix_t(R, xs.dtype, xs.device), ipx=Ipx,
-                             wx=wx, p2=P, n_frames=n_frames)
-    return y[:, :count]
-
-
-def _poly_apply_rational_fused(plan: EnginePlan, x: torch.Tensor,
-                               count: int) -> torch.Tensor:
-    """One banded matmul for the whole two-stage cascade (K1).
-
-    ``x`` is the raw input: this function applies the coverage zeros on
-    the right itself.  No intermediate upsampled stream or frames are
-    materialized.
-    """
-    R, P2, Ipx, _lam = _fused_rational_matrix(plan)
-    R, Ipx = superframe(R, Ipx)
-    P2, wx = R.shape
-    n_frames = -(-count // P2)
-    x = _pad_right(x, (n_frames - 1) * Ipx + wx)
-    y = fused.fused_resample(x, _matrix_t(R, x.dtype, x.device), ipx=Ipx,
-                             wx=wx, p2=P2, n_frames=n_frames)
+    r_t, ipx = aux
+    wx, p2 = r_t.shape
+    n_frames = -(-count // p2)
+    x = _pad_right(x, (n_frames - 1) * ipx + wx)
+    y = fused.fused_resample(x, r_t, ipx=ipx, wx=wx, p2=p2,
+                             n_frames=n_frames)
     return y[:, :count]
 
 
@@ -427,26 +405,48 @@ def _upload(starts_m, dtype: torch.dtype, device):
 def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device):
     """Host-prepared device arguments of the one-shot apply.
 
-    The general and cubic paths' banded tile matrices (tens of MB per
-    (plan, length)) are designed on the host, cached there, and uploaded
-    here; the other topologies need none.
+    Every operator is designed (and cached) on the host and uploaded
+    here, so that :func:`_oneshot_apply` is device work only:
+
+    - general and cubic: (starts, M), the banded tile matrices (tens of
+      MB per (plan, length));
+    - rational: (R_t, Ipx), the superframed per-period operator;
+    - decimate: (R_t, Ipx), the per-period matrix at the kernel's period
+      on the card and the plain version's on the CPU;
+    - dft_up: (coeffs,), the prestage's polyphase rows (none at factor 1).
     """
-    if plan.lengths.canonical(n) <= 0 or n <= 0:
+    device = torch.device(device)
+    canonical = plan.lengths.canonical(n)
+    if canonical <= 0 or n <= 0:
         return ()
-    if plan.kind == 'two_stage' and not plan.is_rational_exact:
-        if plan.aa_taps:
-            raise NotImplementedError(_STRICT_AA)
-        return _upload(_general_matrices(plan, plan.lengths.canonical(n)),
-                       dtype, device)
     if plan.kind == 'cubic':
-        return _upload(_cubic_matrices(plan, plan.lengths.canonical(n)),
-                       dtype, device)
-    return ()
+        return _upload(_cubic_matrices(plan, canonical), dtype, device)
+    if plan.kind == 'dft_up':
+        if plan.factor == 1:
+            return ()
+        return (torch.as_tensor(plan.pre_coeffs, dtype=dtype,
+                                device=device),)
+    if plan.kind == 'decimate':
+        if plan.decim_taps >= DECIM_FFT_MIN_TAPS:
+            raise NotImplementedError(_FFT_DECIM)
+        period = (PALLAS_DECIM_PERIOD if device.type == 'cuda'
+                  else DECIM_PERIOD)
+        r, _, ipx = _decim_matrix(plan, period)
+        return _matrix_t(r, dtype, device), ipx
+    # two_stage
+    if plan.is_rational_exact:
+        r, _, ipx, _lam = _fused_rational_matrix(plan)
+        r, ipx = superframe(r, ipx)
+        return _matrix_t(r, dtype, device), ipx
+    if plan.aa_taps:
+        raise NotImplementedError(_STRICT_AA)
+    return _upload(_general_matrices(plan, canonical), dtype, device)
 
 
-def _oneshot_apply(plan: EnginePlan, x: torch.Tensor, aux=()) -> torch.Tensor:
+def _oneshot_apply(plan: EnginePlan, x: torch.Tensor, aux) -> torch.Tensor:
     """The device part of :func:`oneshot`: x [S, n] in its final dtype
-    and device, ``aux`` from :func:`_oneshot_aux`."""
+    and device, ``aux`` from :func:`_oneshot_aux` for the same plan, n,
+    dtype and device."""
     n = x.shape[1]
     lm = plan.lengths
     canonical = lm.canonical(n)
@@ -455,9 +455,6 @@ def _oneshot_apply(plan: EnginePlan, x: torch.Tensor, aux=()) -> torch.Tensor:
     z = lm.flush_pad(n)
 
     if plan.kind == 'cubic':
-        if not aux:
-            aux = _upload(_cubic_matrices(plan, canonical), x.dtype,
-                          x.device)
         starts_d, m_d = aux
         w_band = int(m_d.shape[1])
         i_last = ((canonical - 1) * plan.cubic_step) >> CubicSim.FRAC_BITS
@@ -466,34 +463,25 @@ def _oneshot_apply(plan: EnginePlan, x: torch.Tensor, aux=()) -> torch.Tensor:
         return _banded_tiles_apply(histbuf, starts_d, m_d, i_last, canonical)
 
     if plan.kind == 'dft_up':
-        t1, f = plan.pre_taps, plan.factor
-        if f == 1:
+        if plan.factor == 1:
             return x  # unity ratio: pass-through (dft_stage.go:57-59)
-        xext = _pad(x, t1 - 1, z)
-        coeffs = torch.as_tensor(plan.pre_coeffs, dtype=x.dtype,
-                                 device=x.device)
-        u = prestage_apply(coeffs, xext, f)
+        xext = _pad(x, plan.pre_taps - 1, z)
+        u = prestage_apply(aux[0], xext, plan.factor)
         drop = lm.drop_prefix()
         return u[:, drop:drop + canonical]
 
     if plan.kind == 'decimate':
-        t, m = plan.decim_taps, plan.factor
-        if t >= DECIM_FFT_MIN_TAPS:
-            raise NotImplementedError(_FFT_DECIM)
         # windows at j*M over (x 0^z ...): the canonical grid
-        need = (canonical - 1) * m + t
-        return _decim_apply_matmul(plan, _pad(x, 0, max(z, need - n)),
-                                   canonical)
+        need = (canonical - 1) * plan.factor + plan.decim_taps
+        return _banded_apply(_pad(x, 0, max(z, need - n)), canonical, aux)
 
     # two_stage
     if plan.is_rational_exact:
-        return _poly_apply_rational_fused(plan, x, canonical)
-    if plan.aa_taps:
-        raise NotImplementedError(_STRICT_AA)
+        return _banded_apply(x, canonical, aux)
     # The prestage is composed into the banded tile matrices (x domain);
     # the device never materializes the 2x intermediate stream.
     xext = _pad(x, plan.pre_taps - 1, z)
-    return _poly_apply_general(plan, xext, canonical, aux if aux else None)
+    return _poly_apply_general(plan, xext, canonical, aux)
 
 
 def oneshot(plan: EnginePlan, x, dtype=None, device='cuda') -> torch.Tensor:

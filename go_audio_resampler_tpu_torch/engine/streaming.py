@@ -19,6 +19,8 @@ stage, then trims the total stream to the canonical output count.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -34,6 +36,16 @@ _UNPORTED_DISPATCH = ('pallas', 'xla', 'tune')
 _UNPORTED_PRECISION = ('high', 'default')
 _UNPORTED_KNOB = ("is not ported yet (ROADMAP.md, queue 2 item 4: the "
                   "precision tiers and the dispatch gate)")
+
+
+class Band(NamedTuple):
+    """The fused banded step's operator: R_t [wx, p2] on the engine's
+    device, its input period ipx, and the carry length."""
+    r_t: torch.Tensor
+    ipx: int
+    wx: int
+    p2: int
+    carry: int
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -190,9 +202,14 @@ class EngineCore:
     def _build_constants(self):
         p = self.plan
         if p.kind == 'decimate':
-            self._build_decim()
-            return
-        if p.kind != 'two_stage' or not p.is_rational_exact:
+            if p.decim_taps >= DECIM_FFT_MIN_TAPS:
+                raise NotImplementedError(f"EngineCore: {_FFT_DECIM}")
+            r, _, ipx = _decim_matrix(p)
+        elif p.kind == 'two_stage' and p.is_rational_exact:
+            # Fused streaming: the whole cascade as one periodic banded
+            # matmul (oneshot._fused_rational_matrix).
+            r, _, ipx, lam = _fused_rational_matrix(p)
+        else:
             where = {
                 'cubic': "queue 1 item 8 (cubic stage)",
                 'dft_up': "queue 1 item 6 (dft_up)",
@@ -202,58 +219,34 @@ class EngineCore:
             raise NotImplementedError(
                 f"EngineCore: topology {p.kind!r} is not ported yet "
                 f"(ROADMAP.md, {where})")
-        # Fused streaming: the whole cascade as one periodic banded matmul
-        # (oneshot._fused_rational_matrix).  The zero carry C >= Wx-Ipx with
-        # C == lam (mod Ipx) places the canonical grid (C-lam)/Ipx periods
-        # into the core stream; the wrapper drops that ramp.
-        r, p2, ipx, lam = _fused_rational_matrix(p)
         # Bound the per-block frames-overlap read amplification; the
         # super-period is capped near the requested block so streaming
         # latency stays at the caller's scale.
         r, ipx = superframe(r, ipx, kf_cap=max(1, self.block // ipx))
-        p2 = r.shape[0]
-        self._rational_rt = torch.as_tensor(
-            np.ascontiguousarray(r.T), dtype=self.dtype, device=self.device)
-        self._rational_p2 = p2
-        self._rational_ipx = ipx
-        self._rational_wx = r.shape[1]
+        p2, wx = r.shape
         self.block = _ceil_div(self.block, ipx) * ipx
-        self._rational_carry = lam + _ceil_div(
-            max(self._rational_wx - ipx - lam, 0), ipx) * ipx
-        self._drop_override = ((self._rational_carry - lam) // ipx) * p2
-
-    def _build_decim(self):
-        p = self.plan
-        if p.decim_taps >= DECIM_FFT_MIN_TAPS:
-            raise NotImplementedError(f"EngineCore: {_FFT_DECIM}")
-        r, _, ipx = _decim_matrix(p)
-        r, ipx = superframe(r, ipx, kf_cap=max(1, self.block // ipx))
-        self._decim_rt = torch.as_tensor(
-            np.ascontiguousarray(r.T), dtype=self.dtype, device=self.device)
-        self._decim_p2 = r.shape[0]
-        self._decim_ipx = ipx
-        self._decim_wx = r.shape[1]
-        self.block = _ceil_div(self.block, ipx) * ipx
-        # Canonical window j reads x[j*M : j*M+T] (no zero samples); a zero
-        # carry of C = round_up(T-1, M) shifts the local grid by C/M ramp
-        # outputs which the wrapper drops.
-        self._decim_carry = _ceil_div(p.decim_taps - 1, p.factor) * p.factor
-        self._drop_override = self._decim_carry // p.factor
-
-    def _banded(self) -> tuple[torch.Tensor, int, int, int, int]:
-        """(R_t, ipx, wx, p2, carry length) of this plan's fused step."""
-        if self.plan.kind == 'decimate':
-            return (self._decim_rt, self._decim_ipx, self._decim_wx,
-                    self._decim_p2, self._decim_carry)
-        return (self._rational_rt, self._rational_ipx, self._rational_wx,
-                self._rational_p2, self._rational_carry)
+        if p.kind == 'decimate':
+            # Canonical window j reads x[j*M : j*M+T] (no zero samples); a
+            # zero carry of C = round_up(T-1, M) shifts the local grid by
+            # C/M ramp outputs, which the wrapper drops.
+            carry = _ceil_div(p.decim_taps - 1, p.factor) * p.factor
+            self._drop_override = carry // p.factor
+        else:
+            # The zero carry C >= Wx-Ipx with C == lam (mod Ipx) places the
+            # canonical grid (C-lam)/Ipx periods into the core stream; the
+            # wrapper drops that ramp.
+            carry = lam + _ceil_div(max(wx - ipx - lam, 0), ipx) * ipx
+            self._drop_override = ((carry - lam) // ipx) * p2
+        r_t = torch.as_tensor(np.ascontiguousarray(r.T), dtype=self.dtype,
+                              device=self.device)
+        self._band = Band(r_t, ipx, wx, p2, carry)
 
     def _init_state(self) -> torch.Tensor:
-        return torch.zeros((self.batch, self._banded()[4]),
+        return torch.zeros((self.batch, self._band.carry),
                            dtype=self.dtype, device=self.device)
 
     def _step(self, state, x):
-        r_t, ipx, wx, p2, _ = self._banded()
+        r_t, ipx, wx, p2, _ = self._band
         return _fused_banded_step(r_t, state, x, ipx=ipx, wx=wx, p2=p2)
 
     def _to_device(self, x) -> torch.Tensor:
@@ -280,7 +273,7 @@ class EngineCore:
         hold after some input.  Lets two engines start from one state.
         """
         carry = np.asarray(carry)
-        want = (self.batch, self._banded()[4])
+        want = (self.batch, self._band.carry)
         if carry.shape != want:
             raise ValueError(f"carry must be {want}, got {carry.shape}")
         self.state = self._to_device(carry)
@@ -336,12 +329,11 @@ class EngineCore:
     def device_chunk_multiple(self) -> int:
         """Input-chunk granularity for :meth:`process_device`: the fused
         operator's input period."""
-        return self._banded()[1]
+        return self._band.ipx
 
     def _device_params(self) -> tuple[int, int]:
         """(input period, outputs per period) for the static-count step."""
-        _, ipx, _, p2, _ = self._banded()
-        return ipx, p2
+        return self._band.ipx, self._band.p2
 
     def _emit_device(self, core_out: torch.Tensor, n_out: int,
                      limit: int | None) -> torch.Tensor:
@@ -469,8 +461,7 @@ class EngineCore:
     def _flush_extra_limit(self) -> int:
         """Max extra zero blocks flush may legally need (exact holdback):
         the banded carry plus one window."""
-        _, _, wx, _, carry = self._banded()
-        hold = carry + wx
+        hold = self._band.carry + self._band.wx
         return _ceil_div(hold, self.block) + 2
 
     def flush(self) -> np.ndarray:

@@ -80,7 +80,7 @@ class TimeMajorEngine:
         self.dtype = _torch_dtype(dtype)
         self.device = eng.device
         self.block = eng.block
-        r_t, self._ipx, self._wx, self._p2, self._carry_len = eng._banded()
+        r_t, self._ipx, self._wx, self._p2, self._carry_len = eng._band
         self._r = r_t.t().contiguous()          # [P2, Wx], left operand
         self._drop = eng._drop_override
         self._lengths = plan.lengths

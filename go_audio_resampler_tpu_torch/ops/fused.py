@@ -23,8 +23,8 @@ import functools
 
 import torch
 
-from ..engine.stages import gather_windows
 from . import _build
+from .frames import gather_windows
 
 #: Kernel launches so far (a plain integer; callers may reset it to 0).
 launches = 0

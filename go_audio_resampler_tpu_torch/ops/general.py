@@ -25,8 +25,8 @@ import functools
 
 import torch
 
-from ..engine.stages import gather_windows_at
 from . import _build
+from .frames import gather_windows_at
 
 #: Kernel launches so far (a plain integer; callers may reset it to 0).
 launches = 0

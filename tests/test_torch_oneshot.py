@@ -160,6 +160,30 @@ def test_each_topology_goes_through_its_kernel(monkeypatch, name, wrapper):
     assert calls == {k: int(k == wrapper) for k in calls}
 
 
+@pytest.mark.parametrize("name", list(TOPOLOGIES))
+def test_aux_holds_every_operator(monkeypatch, name):
+    """``_oneshot_aux`` designs and uploads every operator, so that
+    ``_oneshot_apply`` is device work only: with the host builders and
+    the uploads disabled, the apply still gives the entry point's
+    result."""
+    _, tp = _plans(TOPOLOGIES[name])
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 2000)))
+    want = gart.oneshot(tp, x, device="cpu")
+    aux = toneshot._oneshot_aux(tp, 2000, torch.float64, "cpu")
+    assert all(isinstance(a, int) or (isinstance(a, torch.Tensor)
+                                      and a.device.type == "cpu")
+               for a in aux)
+
+    def no_host_work(*a, **kw):
+        raise AssertionError("host operator work in the apply")
+
+    for fn in ("_decim_matrix", "_fused_rational_matrix", "superframe",
+               "_general_matrices", "_cubic_matrices", "_matrix_t",
+               "_upload"):
+        monkeypatch.setattr(toneshot, fn, no_host_work)
+    assert torch.equal(toneshot._oneshot_apply(tp, x, aux), want)
+
+
 # -- host builders -----------------------------------------------------------------
 
 @pytest.mark.parametrize("period", [toneshot.DECIM_PERIOD,

@@ -88,6 +88,35 @@ def test_length_model_counts_equal(rates, q):
         assert jl.flush_pad(n) == tl.flush_pad(n), n
 
 
+@pytest.mark.parametrize("q", [1, 3, 4])
+@pytest.mark.parametrize("rates", [(48000, 16000), (96000, 48000),
+                                   (48000, 8000)])
+def test_decimation_length_model_counts_equal(rates, q):
+    """The port counts the decimation stage's outputs in closed form; the
+    JAX package walks them one by one.  Both give the same counts."""
+    jl, tl = (p.lengths for p in _plans(rates, q))
+    assert tl.kind == "decimate"
+    for n in COUNTS + [2 * tl.taps - 1, 96000, 480768]:
+        assert jl.canonical(n) == tl.canonical(n), n
+        assert jl.flush_pad(n) == tl.flush_pad(n), n
+
+
+@pytest.mark.parametrize("factor,taps", [(2, 163), (3, 1349), (6, 489),
+                                         (3, 1), (4, 2)])
+def test_decimation_sim_chunked_counts_equal(factor, taps):
+    """Chunk by chunk, the phase carry included, the closed-form count
+    equals the reference loop's."""
+    from go_audio_resampler_tpu.engine.counts import DecimationSim as JSim
+    from go_audio_resampler_tpu_torch.engine.counts import (
+        DecimationSim as TSim)
+    rng = np.random.default_rng(factor * 10000 + taps)
+    js, ts = JSim(factor, taps), TSim(factor, taps)
+    for n in rng.integers(0, 3 * taps + 7, size=200):
+        assert ts.process(int(n)) == js.process(int(n))
+        assert (ts.hist, ts.phase) == (js.hist, js.phase)
+    assert ts.flush() == js.flush()
+
+
 @pytest.mark.parametrize("q", EXACT_QUALITIES)
 @pytest.mark.parametrize("rates", EXACT_RATES)
 def test_fused_rational_matrix_equal(rates, q):

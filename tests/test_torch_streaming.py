@@ -233,11 +233,11 @@ def test_decimation_at_block_2048_matches_jax(rates_q, dtype):
     """At the default block the decimation operator is superframed; the
     port's constants equal the JAX engine's, and so does the stream."""
     je, te = _engines(rates_q, dtype, block=2048)
-    assert (te.block, te._decim_carry, te._drop_override) == (
+    assert (te.block, te._band.carry, te._drop_override) == (
         je.block, je._decim_carry, je._drop_override)
     assert te._device_params() == je._device_params()
     assert te._flush_extra_limit() == je._flush_extra_limit()
-    assert np.array_equal(te._decim_rt.numpy(), np.asarray(je._decim_rt))
+    assert np.array_equal(te._band.r_t.numpy(), np.asarray(je._decim_rt))
     rng = np.random.default_rng(14)
     x = rng.normal(size=(BATCH, 8000)).astype(dtype)
     yj = np.concatenate([np.asarray(je.process(x[:, :3333])),
@@ -254,10 +254,10 @@ def test_decimation_geometry_48k_16k():
     superframe makes it [512, 2882] over 1536, the block 3072."""
     _, te = _engines(DECIM_PLANS[0], np.float32, block=2048)
     assert te.plan.decim_taps == 1349
-    assert tuple(te._decim_rt.shape) == (2882, 512)
-    assert (te._decim_ipx, te._decim_wx, te._decim_p2) == (1536, 2882, 512)
+    assert tuple(te._band.r_t.shape) == (2882, 512)
+    assert te._band[1:4] == (1536, 2882, 512)
     assert te.block == 3072 and te.device_chunk_multiple == 1536
-    assert (te._decim_carry, te._drop_override) == (1350, 450)
+    assert (te._band.carry, te._drop_override) == (1350, 450)
 
 
 def test_fft_decimation_raises(monkeypatch):
@@ -280,8 +280,8 @@ def test_process_steps_through_the_fused_wrapper(monkeypatch):
     te.process(np.zeros((BATCH, 9 * te.block), np.float32))
     te.flush()
     nf = te.block // 147
-    assert calls[0] == ((BATCH, te._rational_carry + 8 * te.block), 8 * nf)
-    assert calls[1] == ((BATCH, te._rational_carry + te.block), nf)
+    assert calls[0] == ((BATCH, te._band.carry + 8 * te.block), 8 * nf)
+    assert calls[1] == ((BATCH, te._band.carry + te.block), nf)
 
 
 # -- guards --------------------------------------------------------------------
@@ -303,6 +303,39 @@ def test_port_imports_no_jax():
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_ops_do_not_import_the_engine():
+    """The kernel layer depends on nothing above it: no module of
+    ``ops`` imports from ``engine``."""
+    ops_dir = os.path.join(REPO, "go_audio_resampler_tpu_torch", "ops")
+    for name in sorted(os.listdir(ops_dir)):
+        if name.endswith(".py"):
+            with open(os.path.join(ops_dir, name)) as f:
+                src = f.read()
+            assert "..engine" not in src and "_torch.engine" not in src, name
+
+
+def test_jax_package_settings_do_not_reach_the_port():
+    """The JAX package reads its FFT-decimation crossover and its matrix
+    cache size from the environment; the port has no FFT route and keeps
+    both fixed, so a crossover set for the JAX package cannot break the
+    port's decimation."""
+    code = ("import importlib, go_audio_resampler_tpu_torch as g\n"
+            "o = importlib.import_module("
+            "'go_audio_resampler_tpu_torch.engine.oneshot')\n"
+            "assert o.DECIM_FFT_MIN_TAPS == 16384, o.DECIM_FFT_MIN_TAPS\n"
+            "assert o.GENERAL_CACHE_LIMIT == 512 << 20\n"
+            "p = g.plan_engine(48000, 16000, g.Quality.HIGH)\n"
+            "assert p.decim_taps == 1349\n"
+            "g.EngineCore(p, device='cpu')\n"
+            "g.TimeMajorEngine(p, device='cpu')\n"
+            "g.oneshot(p, [[0.0] * 100], device='cpu')\n")
+    env = dict(os.environ, PYTHONPATH=REPO, GAR_DECIM_FFT_MIN_TAPS="1024",
+               GAR_TPU_MATRIX_CACHE_MB="1")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

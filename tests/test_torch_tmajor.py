@@ -47,7 +47,7 @@ def _cd_dat_operator():
     """(R [p2, wx] float64, ipx, wx, p2) of 44.1k->48k HIGH."""
     eng = EngineCore(plan_engine(44100, 48000, Quality.HIGH), device="cpu",
                      dtype=torch.float64)
-    r_t, ipx, wx, p2, _ = eng._banded()
+    r_t, ipx, wx, p2, _ = eng._band
     return r_t.t().contiguous().numpy(), ipx, wx, p2
 
 
@@ -120,13 +120,13 @@ def test_step_counts():
     r, ipx, wx, p2 = _cd_dat_operator()
     eng = EngineCore(plan_engine(44100, 48000, Quality.HIGH), batch=2,
                      device="cpu", dtype=torch.float64)
-    carry = torch.zeros((eng._rational_carry, 2), dtype=torch.float64)
+    carry = torch.zeros((eng._band.carry, 2), dtype=torch.float64)
     x = torch.from_numpy(np.random.default_rng(6).normal(size=(ipx * 16, 2)))
     c2, y, n = _step_banded_tmajor(torch.from_numpy(r), carry, x, ipx=ipx,
                                    wx=wx, p2=p2)
     assert n == 16 * p2 and tuple(y.shape) == (16 * p2, 2)
-    assert tuple(c2.shape) == (eng._rational_carry, 2) and c2.is_contiguous()
-    assert torch.equal(c2, x[-eng._rational_carry:])
+    assert tuple(c2.shape) == (eng._band.carry, 2) and c2.is_contiguous()
+    assert torch.equal(c2, x[-eng._band.carry:])
 
 
 # -- TimeMajorEngine -------------------------------------------------------------
