@@ -13,10 +13,13 @@ is printed):
    (one nvcc per source, all started together).
 2. Kernels: each kernel's wrapper (K1 ``fused_resample``, K2
    ``fused_resample_tmajor``, K3 ``general_resample``) against its plain
-   PyTorch version on the card, at its path's shapes and at ragged ones,
+   PyTorch version on the card, at its paths' shapes and at ragged ones,
    including offsets past 2^31 elements, then timed beside its plain
-   version, one library call computing the same function (where there is
-   one), and its bound on this card.
+   version, the library calls computing the same function (where there
+   are any), and its bounds on this card.  K1 and K2 are checked and timed
+   at the main path's shape and at the decimation path's, with their
+   float32-FMA and 3xTF32 tensor-core bounds and their work counted on R's
+   non-zeros and on the kernels' band-limited walk.
 3. Main path: 44.1 kHz -> 48 kHz HIGH, ``EngineCore`` with 1024 streams of
    10 s each, fed through ``process_device`` one 2352-sample block at a
    time, then ``flush_device``.  Checks the exact output length, the
@@ -54,8 +57,10 @@ import time
 import numpy as np
 
 #: Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
-#: tensor cores, and HBM3 bandwidth.  Bounds below are stated against them.
+#: tensor cores, dense TF32 on the tensor cores, and HBM3 bandwidth.
+#: Bounds below are stated against them.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 #: Tolerances: float32 kernel vs its float32 plain version (different
 #: summation order), and float32 engine vs the float64 CPU engine.
@@ -105,6 +110,34 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
+    """Mean device time of one call of ``fn`` in ms: ``reps`` calls
+    captured in one CUDA graph and replayed ``iters`` times, so that the
+    host's enqueue time is not counted."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * iters)
+
+
 def device_kernels(fn, iters: int) -> list[tuple[str, float, float]]:
     """(name, device ms per call, launches per call) of every CUDA kernel
     that ``iters`` calls of ``fn`` ran, from ``torch.profiler``, the
@@ -142,55 +175,118 @@ def decim_operator():
     from go_audio_resampler_tpu_torch import EngineCore, Quality, plan_engine
     eng = EngineCore(plan_engine(DECIM_IN, DECIM_OUT, Quality.HIGH),
                      block=2048, device="cpu")
-    r_t, ipx, wx, p2, _ = eng._band
+    r_t, ipx, wx, p2 = eng._band[:4]
     return r_t.to("cuda"), ipx, wx, p2
 
 
+def banded_cost(rt, op, rows: int, data_elems: int) -> dict:
+    """The work and bounds of ``rows`` windows times R_t [wx, p2]: flops
+    on R's non-zeros (2*nnz*rows) and on the kernels' band-limited walk
+    (every 64-column tile over its band's k-steps, one pass of three), the
+    bytes the function must move (data and R read once, y written once),
+    and its bounds on this card as float32 FMAs and as three TF32
+    tensor-core passes."""
+    import torch
+    from go_audio_resampler_tpu_torch.ops import banded
+    wx, p2 = rt.shape
+    nnz = int(torch.count_nonzero(rt).item())
+    tiles = banded.tile_bands(op.bands.cpu())
+    walk = int((tiles[:, 1] - tiles[:, 0]).sum()) * 8 * banded.TILE_N
+    flops = 2 * nnz * rows
+    bytes_ = 4 * (data_elems + wx * p2 + rows * p2)
+    t_bytes = bytes_ / PEAK_HBM_BYTES * 1e3
+    f32 = max(flops / PEAK_F32_FLOPS * 1e3, t_bytes)
+    tc = max(3 * flops / PEAK_TF32_FLOPS * 1e3, t_bytes)
+    return {"flops_nnz": flops, "nnz_share": nnz / (wx * p2),
+            "flops_band": 2 * walk * rows, "band_share": walk / (wx * p2),
+            "bytes": bytes_,
+            "bound_f32_fma_ms": f32,
+            "bound_f32_fma_by": "bytes" if t_bytes >= f32 else "operations",
+            "bound_ms": tc,
+            "bound_by": "bytes" if t_bytes >= tc else "operations",
+            "blocks": (-(-rows // banded.TILE_M)) * len(tiles) * op.split}
+
+
+def time_banded(label: str, kernel, plain, libraries: dict,
+                cost: dict) -> dict:
+    """Times a K1/K2 shape (CUDA graphs), prints it and returns its
+    fields for the kernels' JSON line."""
+    ms = graph_ms(kernel)
+    plain_ms = graph_ms(plain, reps=5, iters=5)
+    lib = {name: graph_ms(fn, reps=5, iters=5)
+           for name, fn in libraries.items()}
+    print(f"  {label}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+          + ", ".join(f"{k} {v:.5f} ms" for k, v in lib.items())
+          + f" (TF32 off); bounds {cost['bound_f32_fma_ms']:.5f} ms as "
+          f"float32 FMAs ({cost['bound_f32_fma_by']}), {cost['bound_ms']:.5f}"
+          f" ms as 3xTF32 on the tensor cores ({cost['bound_by']}); work "
+          f"{cost['flops_nnz']} flops on R's non-zeros "
+          f"({cost['nnz_share']:.3f} of dense), {cost['flops_band']} flops "
+          f"on the band-limited walk ({cost['band_share']:.3f} of dense; "
+          f"x3 passes), {cost['bytes']} bytes; {cost['blocks']} blocks; "
+          f"{cost['flops_nnz'] / (ms * 1e-3) / 1e12:.2f} TFLOP/s of useful "
+          "work")
+    return {"ms": ms, "plain_ms": plain_ms, **lib,
+            "library_ms": min(lib.values()), **cost}
+
+
 def kernel_phase(gen) -> dict:
-    """K1 against its plain version, then timed at the main-path shape."""
+    """K1 against its plain version, then timed at the main path's and the
+    decimation path's shapes."""
     import torch
     import torch.nn.functional as F
     from go_audio_resampler_tpu_torch import Quality
-    from go_audio_resampler_tpu_torch.ops import fused
+    from go_audio_resampler_tpu_torch.ops import banded, fused
 
     def check(name, s, n_frames, rt, ipx, wx, p2, extra=0):
+        op = banded.prepare(rt)
         x = torch.randn((s, (n_frames - 1) * ipx + wx + extra),
                         generator=gen, device="cuda")
         y = fused.fused_resample(x, rt, ipx=ipx, wx=wx, p2=p2,
-                                 n_frames=n_frames)
+                                 n_frames=n_frames, op=op)
         ref = fused.fused_resample_reference(x, rt, ipx=ipx, wx=wx, p2=p2,
                                              n_frames=n_frames)
         torch.cuda.synchronize()
         err = (y - ref).abs().max().item()
         print(f"  K1 {name}: data {tuple(x.shape)}, R_t {tuple(rt.shape)}, "
-              f"{n_frames} frames, ipx {ipx}: max |kernel - plain| = {err:.3g}")
+              f"{n_frames} frames, ipx {ipx}, split {op.split}: "
+              f"max |kernel - plain| = {err:.3g}")
         require(y.shape == (s, n_frames * p2) and math.isfinite(err),
                 f"K1 {name}: shape {tuple(y.shape)}, error {err}")
         require(err <= KERNEL_TOL, f"K1 {name}: {err} > {KERNEL_TOL}")
-        return x, err
+        return x, op, err
 
     rt, ipx, wx, p2 = operator(Quality.HIGH)
     require((tuple(rt.shape), ipx) == ((343, 160), 147), (rt.shape, ipx))
     n_frames = BLOCK // ipx
     carry = -(-(wx - ipx) // ipx) * ipx
     # The main-path step: [carry ++ block] = [1024, 294 + 2352].
-    x_main, err = check("main path", STREAMS, n_frames, rt, ipx, wx, p2,
-                        extra=carry + BLOCK - ((n_frames - 1) * ipx + wx))
+    x_main, op, err = check("main path", STREAMS, n_frames, rt, ipx, wx, p2,
+                            extra=carry + BLOCK - ((n_frames - 1) * ipx + wx))
     require(tuple(x_main.shape) == (STREAMS, 2646), tuple(x_main.shape))
     errs = [err]
-    errs.append(check("ragged", 5, 13, rt, ipx, wx, p2, extra=5)[1])
+    errs.append(check("ragged", 5, 13, rt, ipx, wx, p2, extra=5)[2])
     rt2, ipx2, wx2, p22 = operator(Quality.HIGH, RATE_OUT, RATE_IN)
     require((tuple(rt2.shape), ipx2) == ((351, 147), 160), (rt2.shape, ipx2))
-    errs.append(check("48k->44.1k", 37, 20, rt2, ipx2, wx2, p22)[1])
+    errs.append(check("48k->44.1k", 37, 20, rt2, ipx2, wx2, p22)[2])
     rt3, ipx3, wx3, p23 = operator(Quality.VERY_HIGH)
-    errs.append(check("superframed VERY_HIGH", 9, 11, rt3, ipx3, wx3, p23)[1])
+    errs.append(check("superframed VERY_HIGH", 9, 11, rt3, ipx3, wx3,
+                      p23)[2])
+    rt4, ipx4, wx4, p24 = decim_operator()
+    # The decimation path's step: [carry ++ block] = [256, 1350 + 3072].
+    x_dec, op4, err = check("decimation path", DECIM_STREAMS, 2, rt4, ipx4,
+                            wx4, p24, extra=DECIM_CARRY + ipx4 - wx4)
+    require(tuple(x_dec.shape) == (DECIM_STREAMS, 4422) and op4.split == 8,
+            f"decimation step {tuple(x_dec.shape)}, split {op4.split}")
+    errs.append(err)
 
     # Offsets past 2^31 elements: row 1 of a [2, 1.2e9] input ends beyond
     # 2^31, and so does its output; the tail frames are checked.
     big_n = 1_200_000_000
     nfb = (big_n - wx) // ipx + 1
     xb = torch.empty((2, big_n), device="cuda").normal_(generator=gen)
-    yb = fused.fused_resample(xb, rt, ipx=ipx, wx=wx, p2=p2, n_frames=nfb)
+    yb = fused.fused_resample(xb, rt, ipx=ipx, wx=wx, p2=p2, n_frames=nfb,
+                              op=op)
     tail = 64
     f0 = nfb - tail
     ref = fused.fused_resample_reference(
@@ -206,37 +302,39 @@ def kernel_phase(gen) -> dict:
     del xb, yb, ref
     torch.cuda.empty_cache()
 
-    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=n_frames)
-    weight = rt.t().contiguous()[:, None, :]                  # [p2, 1, wx]
-    lib_in = x_main[:, None, :(n_frames - 1) * ipx + wx].contiguous()
-    lib = F.conv1d(lib_in, weight, stride=ipx)                # [S, p2, F]
-    lib_err = (lib.transpose(1, 2).reshape(STREAMS, -1)
-               - fused.fused_resample(x_main, rt, **kw)).abs().max().item()
-    require(lib_err <= KERNEL_TOL, f"conv1d disagrees: {lib_err}")
-    ms = cuda_ms(lambda: fused.fused_resample(x_main, rt, **kw), 200)
-    plain_ms = cuda_ms(
-        lambda: fused.fused_resample_reference(x_main, rt, **kw), 50)
-    library_ms = cuda_ms(lambda: F.conv1d(lib_in, weight, stride=ipx), 50)
-    nnz = int(torch.count_nonzero(rt).item())
-    flops = 2 * nnz * STREAMS * n_frames
-    bytes_ = 4 * (STREAMS * ((n_frames - 1) * ipx + wx) + wx * p2
-                  + STREAMS * n_frames * p2)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, bytes_ / PEAK_HBM_BYTES * 1e3
-    dense_ms = 2 * wx * p2 * STREAMS * n_frames / PEAK_F32_FLOPS * 1e3
-    print(f"  K1 main shape: kernel {ms:.5f} ms, plain (unfold+matmul) "
-          f"{plain_ms:.5f} ms, library (conv1d, TF32 off) {library_ms:.5f} "
-          f"ms; bound {max(t_ops, t_bytes):.5f} ms ({flops} flops on the "
-          f"{nnz} non-zeros of R_t, {bytes_} bytes; dense product "
-          f"{dense_ms:.5f} ms); kernel reaches "
-          f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of useful work")
+    shapes = {}
+    for shape, x, r_t, op_, (ip, w, p, nf) in (
+            ("main", x_main, rt, op, (ipx, wx, p2, n_frames)),
+            ("decimation", x_dec, rt4, op4, (ipx4, wx4, p24, 2))):
+        kw = dict(ipx=ip, wx=w, p2=p, n_frames=nf)
+        weight = r_t.t().contiguous()[:, None, :]             # [p2, 1, wx]
+        lib_in = x[:, None, :(nf - 1) * ip + w].contiguous()
+        frames = x.unfold(1, w, ip)[:, :nf]                   # [S, F, wx]
+        lib = F.conv1d(lib_in, weight, stride=ip)             # [S, p2, F]
+        got = fused.fused_resample(x, r_t, op=op_, **kw)
+        lib_err = max((lib.transpose(1, 2).reshape(x.shape[0], -1)
+                       - got).abs().max().item(),
+                      (torch.matmul(frames, r_t).reshape(x.shape[0], -1)
+                       - got).abs().max().item())
+        require(lib_err <= KERNEL_TOL, f"K1 {shape}: library calls "
+                f"disagree by {lib_err}")
+        shapes[shape] = time_banded(
+            f"K1 {shape} shape", lambda: fused.fused_resample(
+                x, r_t, op=op_, **kw),
+            lambda: fused.fused_resample_reference(x, r_t, **kw),
+            {"library_conv1d_ms": lambda: F.conv1d(lib_in, weight,
+                                                   stride=ip),
+             "library_matmul_ms": lambda: torch.matmul(frames, r_t)},
+            banded_cost(r_t, op_, x.shape[0] * nf, x.numel()))
+    main = shapes["main"]
     return {"name": "fused_resample", "route": "cuda",
             "source": "go_audio_resampler_tpu_torch/ops/csrc/"
                       "fused_resample.cu",
             "replaces": "go_audio_resampler_tpu/ops/pallas_fused.py:210",
-            "launches": None, "max_abs_err": max(errs), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms}
+            "launches": None, "max_abs_err": max(errs), "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shapes": shapes}
 
 
 def bound(flops: int, bytes_: int) -> tuple[float, str]:
@@ -248,53 +346,58 @@ def bound(flops: int, bytes_: int) -> tuple[float, str]:
 
 def k2_phase(gen) -> dict:
     """K2 against its plain version (and K1), then timed at the
-    time-major path's shape."""
+    time-major path's and the decimation path's shapes."""
     import torch
     import torch.nn.functional as F
     from go_audio_resampler_tpu_torch import Quality
-    from go_audio_resampler_tpu_torch.ops import fused, tmajor
+    from go_audio_resampler_tpu_torch.ops import banded, fused, tmajor
 
     def check(name, s, n_frames, rt, ipx, wx, p2, extra=0):
         r = rt.t().contiguous()
+        op = banded.prepare(rt)
         xt = torch.randn(((n_frames - 1) * ipx + wx + extra, s),
                          generator=gen, device="cuda")
         y = tmajor.fused_resample_tmajor(xt, r, ipx=ipx, wx=wx, p2=p2,
-                                         n_frames=n_frames)
+                                         n_frames=n_frames, op=op)
         ref = tmajor.fused_resample_tmajor_reference(xt, r, ipx=ipx, wx=wx,
                                                      p2=p2, n_frames=n_frames)
         k1 = fused.fused_resample(xt.t().contiguous(), rt, ipx=ipx, wx=wx,
-                                  p2=p2, n_frames=n_frames)
+                                  p2=p2, n_frames=n_frames, op=op)
         torch.cuda.synchronize()
         err = (y - ref).abs().max().item()
         same = bool(torch.equal(y, k1.t()))
         print(f"  K2 {name}: xT {tuple(xt.shape)}, R {tuple(r.shape)}, "
-              f"{n_frames} frames, ipx {ipx}: max |kernel - plain| = "
-              f"{err:.3g}; equal to K1 bit for bit: {same}")
+              f"{n_frames} frames, ipx {ipx}, split {op.split}: max |kernel "
+              f"- plain| = {err:.3g}; equal to K1 bit for bit: {same}")
         require(y.shape == (n_frames * p2, s) and math.isfinite(err),
                 f"K2 {name}: shape {tuple(y.shape)}, error {err}")
         require(err <= KERNEL_TOL, f"K2 {name}: {err} > {KERNEL_TOL}")
         require(same, f"K2 {name}: differs from K1 on the same data")
-        return xt, err
+        return xt, op, err
 
     rt, ipx, wx, p2 = operator(Quality.HIGH)
     n_frames = BLOCK // ipx
     carry = -(-(wx - ipx) // ipx) * ipx
     # The time-major path's step: [carry ++ block] = [294 + 2352, 1024].
-    xt_main, err = check("time-major path", STREAMS, n_frames, rt, ipx, wx,
-                         p2, extra=carry + BLOCK - ((n_frames - 1) * ipx + wx))
+    xt_main, op, err = check("time-major path", STREAMS, n_frames, rt, ipx,
+                             wx, p2, extra=carry + BLOCK
+                             - ((n_frames - 1) * ipx + wx))
     require(tuple(xt_main.shape) == (2646, STREAMS), tuple(xt_main.shape))
     errs = [err]
-    errs.append(check("ragged", 1000, 13, rt, ipx, wx, p2, extra=5)[1])
-    errs.append(check("single frame", 3, 1, rt, ipx, wx, p2)[1])
+    errs.append(check("ragged", 1000, 13, rt, ipx, wx, p2, extra=5)[2])
+    errs.append(check("single frame", 3, 1, rt, ipx, wx, p2)[2])
     rt2, ipx2, wx2, p22 = operator(Quality.HIGH, RATE_OUT, RATE_IN)
-    errs.append(check("48k->44.1k", 37, 20, rt2, ipx2, wx2, p22)[1])
+    errs.append(check("48k->44.1k", 37, 20, rt2, ipx2, wx2, p22)[2])
     rt3, ipx3, wx3, p23 = operator(Quality.VERY_HIGH)
     errs.append(check("superframed VERY_HIGH", 129, 7, rt3, ipx3, wx3,
-                      p23)[1])
+                      p23)[2])
     rt4, ipx4, wx4, p24 = decim_operator()
     # The decimation path's step: [carry ++ block] = [1350 + 3072, 256].
-    errs.append(check("decimation path", DECIM_STREAMS, 2, rt4, ipx4, wx4,
-                      p24, extra=DECIM_CARRY + ipx4 - wx4)[1])
+    xt_dec, op4, err = check("decimation path", DECIM_STREAMS, 2, rt4, ipx4,
+                             wx4, p24, extra=DECIM_CARRY + ipx4 - wx4)
+    require(tuple(xt_dec.shape) == (4422, DECIM_STREAMS),
+            tuple(xt_dec.shape))
+    errs.append(err)
 
     # Offsets past 2^31 elements: a [17e6, 128] input and its output.
     big_n = 17_000_000
@@ -302,7 +405,7 @@ def k2_phase(gen) -> dict:
     r = rt.t().contiguous()
     xb = torch.empty((big_n, 128), device="cuda").normal_(generator=gen)
     yb = tmajor.fused_resample_tmajor(xb, r, ipx=ipx, wx=wx, p2=p2,
-                                      n_frames=nfb)
+                                      n_frames=nfb, op=op)
     tail = 64
     f0 = nfb - tail
     ref = tmajor.fused_resample_tmajor_reference(
@@ -317,38 +420,44 @@ def k2_phase(gen) -> dict:
     del xb, yb, ref
     torch.cuda.empty_cache()
 
-    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=n_frames)
-    # Library yardstick: conv1d on the stream-major copy (the transpose is
-    # set-up, not timed).
-    weight = rt.t().contiguous()[:, None, :]                  # [p2, 1, wx]
-    lib_in = xt_main.t().contiguous()[:, None, :]
-    lib = F.conv1d(lib_in, weight, stride=ipx)                # [S, p2, F]
-    lib_err = (lib.permute(2, 1, 0).reshape(n_frames * p2, STREAMS)
-               - tmajor.fused_resample_tmajor(xt_main, r, **kw)
-               ).abs().max().item()
-    require(lib_err <= KERNEL_TOL, f"conv1d disagrees with K2: {lib_err}")
-    ms = cuda_ms(lambda: tmajor.fused_resample_tmajor(xt_main, r, **kw), 200)
-    plain_ms = cuda_ms(lambda: tmajor.fused_resample_tmajor_reference(
-        xt_main, r, **kw), 50)
-    library_ms = cuda_ms(lambda: F.conv1d(lib_in, weight, stride=ipx), 50)
-    nnz = int(torch.count_nonzero(rt).item())
-    flops = 2 * nnz * STREAMS * n_frames
-    bytes_ = 4 * (STREAMS * xt_main.shape[0] + wx * p2
-                  + STREAMS * n_frames * p2)
-    bound_ms, bound_by = bound(flops, bytes_)
-    print(f"  K2 time-major shape: kernel {ms:.5f} ms, plain (unfold+matmul) "
-          f"{plain_ms:.5f} ms, library (conv1d on the stream-major copy, "
-          f"transpose not timed, TF32 off) {library_ms:.5f} ms; bound "
-          f"{bound_ms:.5f} ms, {bound_by} ({flops} flops on the {nnz} "
-          f"non-zeros of R, {bytes_} bytes); kernel reaches "
-          f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of useful work")
+    shapes = {}
+    for shape, xt, r_t, op_, (ip, w, p, nf) in (
+            ("main", xt_main, rt, op, (ipx, wx, p2, n_frames)),
+            ("decimation", xt_dec, rt4, op4, (ipx4, wx4, p24, 2))):
+        kw = dict(ipx=ip, wx=w, p2=p, n_frames=nf)
+        s = xt.shape[1]
+        r = r_t.t().contiguous()
+        # Library yardsticks: conv1d on the stream-major copy (the
+        # transpose is set-up, not timed), and one batched matmul on the
+        # unfold view along time.
+        weight = r[:, None, :]                                # [p2, 1, wx]
+        lib_in = xt.t().contiguous()[:, None, :]
+        frames_t = xt[:(nf - 1) * ip + w].unfold(0, w, ip).transpose(1, 2)
+        got = tmajor.fused_resample_tmajor(xt, r, op=op_, **kw)
+        lib = F.conv1d(lib_in, weight, stride=ip)             # [S, p2, F]
+        lib_err = max((lib.permute(2, 1, 0).reshape(nf * p, s)
+                       - got).abs().max().item(),
+                      (torch.matmul(r, frames_t).reshape(nf * p, s)
+                       - got).abs().max().item())
+        require(lib_err <= KERNEL_TOL, f"K2 {shape}: library calls "
+                f"disagree by {lib_err}")
+        shapes[shape] = time_banded(
+            f"K2 {shape} shape", lambda: tmajor.fused_resample_tmajor(
+                xt, r, op=op_, **kw),
+            lambda: tmajor.fused_resample_tmajor_reference(xt, r, **kw),
+            {"library_conv1d_ms": lambda: F.conv1d(lib_in, weight,
+                                                   stride=ip),
+             "library_matmul_ms": lambda: torch.matmul(r, frames_t)},
+            banded_cost(r_t, op_, s * nf, xt.numel()))
+    main = shapes["main"]
     return {"name": "fused_resample_tmajor", "route": "cuda",
             "source": "go_audio_resampler_tpu_torch/ops/csrc/"
                       "fused_resample_tmajor.cu",
             "replaces": "go_audio_resampler_tpu/ops/pallas_fused.py:396",
-            "launches": None, "max_abs_err": max(errs), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "launches": None, "max_abs_err": max(errs), "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shapes": shapes}
 
 
 def general_case(count_in: int = ONESHOT_SECONDS * RATE_IN):
@@ -787,8 +896,9 @@ def chunking_phase(seed: int) -> None:
 
 def profile_phase(gen, steps: int = 40) -> None:
     """Where a warm step's time goes, on the main, time-major and
-    decimation paths: host enqueue time, device time, and the device time
-    of each kernel from ``torch.profiler``."""
+    decimation paths (the last through both engines): host enqueue time,
+    device time, and the device time of each kernel from
+    ``torch.profiler``."""
     import torch
     from go_audio_resampler_tpu_torch import (EngineCore, Quality,
                                               TimeMajorEngine, plan_engine)
@@ -804,6 +914,9 @@ def profile_phase(gen, steps: int = 40) -> None:
         ("decimation path", EngineCore(decim, batch=DECIM_STREAMS,
                                        block=2048),
          DECIM_STREAMS, 3072, False),
+        ("time-major decimation path", TimeMajorEngine(
+            decim, batch=DECIM_STREAMS, block=2048), DECIM_STREAMS, 3072,
+         True),
     ]
     for label, eng, s, blk, tmaj in paths:
         x = torch.empty((s, steps * blk), device="cuda").normal_(
@@ -896,6 +1009,13 @@ def main() -> int:
           f"{decim_k1} (decimation), {oneshot_k1} (one-shot); K2 "
           f"{k2['launches']} (time-major), {decim_k2} (decimation); K3 "
           f"{k3['launches']} (one-shot)")
+    require((k1["launches"], decim_k1, oneshot_k1, k2["launches"], decim_k2,
+             k3["launches"]) == (190, 158, 3, 190, 158, 2),
+            "launch counts differ from 190/158/3 (K1), 190/158 (K2), 2 (K3)")
+    k1["shapes"]["main"]["launches"] = k1["launches"]
+    k1["shapes"]["decimation"]["launches"] = decim_k1
+    k2["shapes"]["main"]["launches"] = k2["launches"]
+    k2["shapes"]["decimation"]["launches"] = decim_k2
     print("chunking:")
     chunking_phase(args.seed)
     if args.profile:

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..filterdesign.params import PHASE_FRAC_BITS
-from ..ops import fused, general
+from ..ops import banded, fused, general
 from .counts import CubicSim
 from .plan import EnginePlan
 from .stages import prestage_apply
@@ -340,6 +340,14 @@ def _matrix_t(r: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
                            device=device)
 
 
+def _banded_aux(r: np.ndarray, ipx: int, dtype: torch.dtype, device):
+    """(R_t, Ipx) of a periodic banded operator on the device, and on the
+    card R_t as K1 reads it (``banded.prepare``): (R_t, Ipx, op)."""
+    r_t = _matrix_t(r, dtype, device)
+    op = banded.prepare_on_card(r_t)
+    return (r_t, ipx) if op is None else (r_t, ipx, op)
+
+
 def _banded_tiles_apply(u: torch.Tensor, starts_d: torch.Tensor,
                         m_d: torch.Tensor, last_start: int,
                         count: int) -> torch.Tensor:
@@ -378,16 +386,17 @@ def _banded_apply(x: torch.Tensor, count: int, aux) -> torch.Tensor:
     package's ``_poly_apply_rational_fused`` and ``_decim_apply_matmul``.
 
     Frames of ``x`` of width Wx advance Ipx per P outputs; ``aux`` is
-    (R_t [Wx, P], Ipx) from :func:`_oneshot_aux`.  ``x`` is zero-extended
-    on the right to cover the last frame; no intermediate stream or
-    frames are materialized.
+    (R_t [Wx, P], Ipx), with the prepared operator on the card, from
+    :func:`_banded_aux`.  ``x`` is zero-extended on the right to cover the
+    last frame; no intermediate stream or frames are materialized.
     """
-    r_t, ipx = aux
+    r_t, ipx = aux[:2]
     wx, p2 = r_t.shape
     n_frames = -(-count // p2)
     x = _pad_right(x, (n_frames - 1) * ipx + wx)
     y = fused.fused_resample(x, r_t, ipx=ipx, wx=wx, p2=p2,
-                             n_frames=n_frames)
+                             n_frames=n_frames,
+                             op=aux[2] if len(aux) > 2 else None)
     return y[:, :count]
 
 
@@ -413,6 +422,8 @@ def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device):
     - rational: (R_t, Ipx), the superframed per-period operator;
     - decimate: (R_t, Ipx), the per-period matrix at the kernel's period
       on the card and the plain version's on the CPU;
+    - on the card, rational and decimate also carry R_t as K1 reads it
+      (``banded.prepare``);
     - dft_up: (coeffs,), the prestage's polyphase rows (none at factor 1).
     """
     device = torch.device(device)
@@ -432,12 +443,12 @@ def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device):
         period = (PALLAS_DECIM_PERIOD if device.type == 'cuda'
                   else DECIM_PERIOD)
         r, _, ipx = _decim_matrix(plan, period)
-        return _matrix_t(r, dtype, device), ipx
+        return _banded_aux(r, ipx, dtype, device)
     # two_stage
     if plan.is_rational_exact:
         r, _, ipx, _lam = _fused_rational_matrix(plan)
         r, ipx = superframe(r, ipx)
-        return _matrix_t(r, dtype, device), ipx
+        return _banded_aux(r, ipx, dtype, device)
     if plan.aa_taps:
         raise NotImplementedError(_STRICT_AA)
     return _upload(_general_matrices(plan, canonical), dtype, device)

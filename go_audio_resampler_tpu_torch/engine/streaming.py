@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import fused
+from ..ops import banded, fused
 from ..pipeline.buffer import SampleFIFO
 from .oneshot import (DECIM_FFT_MIN_TAPS, _FFT_DECIM, _decim_matrix,
                       _fused_rational_matrix, superframe)
@@ -40,12 +40,14 @@ _UNPORTED_KNOB = ("is not ported yet (ROADMAP.md, queue 2 item 4: the "
 
 class Band(NamedTuple):
     """The fused banded step's operator: R_t [wx, p2] on the engine's
-    device, its input period ipx, and the carry length."""
+    device, its input period ipx, the carry length, and on the card R_t
+    as the kernels read it (``banded.prepare``; None on the CPU)."""
     r_t: torch.Tensor
     ipx: int
     wx: int
     p2: int
     carry: int
+    op: banded.BandedOperator | None = None
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -63,16 +65,19 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 
 def _banded_frames_apply(data: torch.Tensor, r_t: torch.Tensor, ipx: int,
-                         wx: int, p2: int, n_frames: int) -> torch.Tensor:
+                         wx: int, p2: int, n_frames: int,
+                         op: banded.BandedOperator | None = None
+                         ) -> torch.Tensor:
     """Windows at j*ipx of width wx times r_t [wx, p2] -> [S, F*p2].
 
-    The K1 kernel on a CUDA tensor, its plain version on a CPU tensor.
+    The K1 kernel on a CUDA tensor (reading ``op``), its plain version on
+    a CPU tensor.
     """
     return fused.fused_resample(data, r_t, ipx=ipx, wx=wx, p2=p2,
-                                n_frames=n_frames)
+                                n_frames=n_frames, op=op)
 
 
-def _fused_banded_step(r_t, carry, x, ipx, wx, p2):
+def _fused_banded_step(r_t, carry, x, ipx, wx, p2, op=None):
     """The streaming step of the fused banded topologies (the JAX
     package's ``_step_rational_fused`` and ``_step_decim_fused``).
 
@@ -86,7 +91,7 @@ def _fused_banded_step(r_t, carry, x, ipx, wx, p2):
     b = x.shape[1]
     n_frames = b // ipx
     data = torch.cat([carry.to(x.dtype), x], dim=1)
-    y = _banded_frames_apply(data, r_t, ipx, wx, p2, n_frames)
+    y = _banded_frames_apply(data, r_t, ipx, wx, p2, n_frames, op)
     return data[:, b:].contiguous(), y, n_frames * p2
 
 
@@ -239,15 +244,17 @@ class EngineCore:
             self._drop_override = ((carry - lam) // ipx) * p2
         r_t = torch.as_tensor(np.ascontiguousarray(r.T), dtype=self.dtype,
                               device=self.device)
-        self._band = Band(r_t, ipx, wx, p2, carry)
+        self._band = Band(r_t, ipx, wx, p2, carry,
+                          banded.prepare_on_card(r_t))
 
     def _init_state(self) -> torch.Tensor:
         return torch.zeros((self.batch, self._band.carry),
                            dtype=self.dtype, device=self.device)
 
     def _step(self, state, x):
-        r_t, ipx, wx, p2, _ = self._band
-        return _fused_banded_step(r_t, state, x, ipx=ipx, wx=wx, p2=p2)
+        r_t, ipx, wx, p2, _, op = self._band
+        return _fused_banded_step(r_t, state, x, ipx=ipx, wx=wx, p2=p2,
+                                  op=op)
 
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)

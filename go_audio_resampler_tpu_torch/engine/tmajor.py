@@ -24,10 +24,11 @@ from .plan import EnginePlan
 from .streaming import EngineCore, _ceil_div, _torch_dtype
 
 
-def _step_banded_tmajor(r, carry, x, ipx, wx, p2):
+def _step_banded_tmajor(r, carry, x, ipx, wx, p2, op=None):
     """Time-major twin of the fused banded step: [C+B, S] rows -> frames.
 
-    ``r`` [P2, Wx] (not transposed: it is the left operand here);
+    ``r`` [P2, Wx] (not transposed: it is the left operand here), ``op``
+    its prepared form on the card (``banded.prepare(r.T)``);
     ``carry`` [C, S]; ``x`` [B, S] with B % ipx == 0.  Window j reads rows
     [carry ++ x][j*ipx : j*ipx + wx], the same canonical grid as the
     stream-major step.  Emits exactly (B/ipx)*P2 rows; the new carry is
@@ -37,7 +38,7 @@ def _step_banded_tmajor(r, carry, x, ipx, wx, p2):
     n_frames = b // ipx
     data = torch.cat([carry.to(x.dtype), x], dim=0)
     y = tmajor.fused_resample_tmajor(data, r, ipx=ipx, wx=wx, p2=p2,
-                                     n_frames=n_frames)
+                                     n_frames=n_frames, op=op)
     return data[b:], y, n_frames * p2
 
 
@@ -80,7 +81,8 @@ class TimeMajorEngine:
         self.dtype = _torch_dtype(dtype)
         self.device = eng.device
         self.block = eng.block
-        r_t, self._ipx, self._wx, self._p2, self._carry_len = eng._band
+        (r_t, self._ipx, self._wx, self._p2, self._carry_len,
+         self._op) = eng._band
         self._r = r_t.t().contiguous()          # [P2, Wx], left operand
         self._drop = eng._drop_override
         self._lengths = plan.lengths
@@ -110,7 +112,7 @@ class TimeMajorEngine:
     def _run(self, xt: torch.Tensor, limit: int | None) -> torch.Tensor:
         self._carry, y, n_out = _step_banded_tmajor(
             self._r, self._carry, xt, ipx=self._ipx, wx=self._wx,
-            p2=self._p2)
+            p2=self._p2, op=self._op)
         start = 0
         if self._core_emitted < self._drop:
             start = min(self._drop - self._core_emitted, n_out)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and compiles
 on its own with ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``go_audio_resampler_tpu_torch/_build/`` (listed in ``.gitignore``).
-The library's file name carries a digest of its source, so an edited
-kernel is rebuilt and a stale one is never loaded.  Nothing here runs at
+The library's file name carries a digest of its source and of every local
+header it includes (``#include "..."``, e.g. ``banded_mma.cuh``), so an
+edited kernel or header is rebuilt and a stale library is never loaded.  Nothing here runs at
 import time; a machine without ``nvcc`` fails only when a kernel is asked
 for.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,6 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: ptxas report (registers, shared memory, spills) of each kernel built by
@@ -40,10 +43,28 @@ def _nvcc() -> str:
     return path
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the local headers it includes, recursively
+    (an include that is not a file beside its includer is left to nvcc)."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / inc
+                 for inc in _INCLUDE.findall(path.read_text())
+                 if (path.parent / inc).is_file()]
+    return found
+
+
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` goes, keyed by its source."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where the library of ``csrc/<name>.cu`` goes, keyed by its source
+    and its headers."""
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def nvcc_command(name: str, out: Path) -> list[str]:

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from . import fused
+from . import banded, fused
 
 #: outputs per frame of the banded lowering on the card
 BAND_PERIOD = 128
@@ -87,8 +87,11 @@ def _conv_banded(x: torch.Tensor, kernels: torch.Tensor, stride: int,
     need = (nf - 1) * ipx + w
     if n < need:
         x = torch.cat([x, x.new_zeros((s, need - n))], dim=1)
+    # The band matrix depends on the input's length (p), so it is built,
+    # and prepared for the kernel, per call.
     y3 = fused.fused_resample(x.contiguous(), r_t, ipx=ipx, wx=w, p2=p2,
-                              n_frames=nf)                  # [S, nf*p*F]
+                              n_frames=nf, op=banded.prepare_on_card(r_t))
+    # y3: [S, nf*p*F]
     if interleaved:
         # y3[s, k*p*F + ii*F + ff] = filter ff at output k*p + ii: already
         # the polyphase-interleaved order.

@@ -15,178 +15,125 @@
 // is a window that starts f*Ipx samples into stream s.  y, read as
 // [M, P2] row-major, is A @ R_t.  No frame is ever written to memory.
 //
-// Bound on this card.  Per frame the product costs 2*Wx*P2 flops
-// (109,760 for 44.1k->48k HIGH, Wx = 343, P2 = 160) against about 8.4 bytes
-// of memory traffic per input sample (4 read, 4*P2/Ipx written), i.e.
-// ~89 flops per byte.  The H100 does ~20 float32 flops per byte of HBM
-// bandwidth outside the tensor cores, so the kernel is bound by float32
-// FMAs, not by memory.  R_t is banded (about 57% of its entries are
-// non-zero for that plan); this kernel does the dense product.
+// Bounds on this card (H100 SXM: 67 TFLOP/s float32 FMA, 495 TFLOP/s
+// TF32 tensor cores, 3.35 TB/s).  Counting the non-zeros of R, 44.1k->48k
+// HIGH (R_t [343, 160] over Ipx 147, 1024 streams x 16 frames) is 1.03
+// GFLOP and 21.5 MB: 0.0154 ms as float32 FMAs, 0.0064 ms as three TF32
+// tensor-core passes, where the bytes bind.  48k->16k HIGH (R_t
+// [2882, 512] over 1536, 256 streams x 2 frames) is 0.707 GFLOP and 11.5
+// MB: 0.0106 ms as FMAs, 0.0043 ms as three TF32 passes, bound by the
+// operations.
 //
-// Design, for that bound: a plain shared-memory tiled SGEMM over the
-// implicit A.  A block owns 128 consecutive rows of A (several streams'
-// frames, or a run of frames of one stream) and 160 columns; 256 threads
-// each hold an 8x10 tile of accumulators in registers, so every float
-// read from shared memory feeds several FMAs.  Taps go through shared
-// memory 16 at a time, double buffered: the global loads of the next
-// stage are in flight while the current one is multiplied.  The windows
-// overlap (Wx > Ipx), so A's rows re-read the same samples; those re-reads
-// hit L1/L2, and R_t (220 KB) stays resident in L2.  Shared memory per
-// block is fixed (37 KB) whatever Ipx and Wx are, so superframed periods
-// take the same path.  Each output is one fixed-order chain of fmaf over
-// w = 0, 1, ..., so an output's bits do not depend on how the stream was
-// cut into launches.  Offsets are 64-bit.
+// Design, for those bounds (banded_mma.cuh holds the shared part):
+// three TF32 passes on the tensor cores (wgmma, float32 accumulation)
+// instead of float32 FMAs, at float32 accuracy; each block walks only the
+// band of R's non-zero taps of its 80 output columns (R is 57% non-zero at
+// 44.1k->48k and 47% at 48k->16k), each 8-column block of B zero outside
+// its own band; 128-row x 80-column blocks, 256 at the main shape, and at
+// the decimation shape 224 with the long bands split across clusters of
+// 8 (one wave at two blocks an SM); a four-stage cp.async ring of 2
+// k-steps.  The rows of a block are windows of up to 128 frames of one or
+// more streams, each staged from x in place: in 16-byte chunks from the
+// 16-byte boundary below the window's tap (x aligned), the fragments
+// reading past the skew; else 4 bytes at a time.  Offsets are 64-bit.
+// Measured on an H100 (PERF.md): 0.04 ms at the main shape and 0.03 ms at
+// the decimation shape, bound by the block's loads from L2 and the work
+// around them, not by the tensor cores.
 
-#include <cuda_runtime.h>
+#include "banded_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;                  // 16 x 16
-constexpr int kBM = 128;                       // rows of A per block
-constexpr int kBN = 160;                       // output columns per block
-constexpr int kBK = 16;                        // taps per shared-memory stage
-constexpr int kTM = 8;                         // rows per thread
-constexpr int kTN = 10;                        // columns per thread (5 pairs)
-constexpr int kAPitch = kBM + 4;               // transposed A tile row pitch
-constexpr int kALoads = kBM * kBK / kThreads;  // 8
-constexpr int kBLoads = kBK * kBN / kThreads;  // 10
+using namespace banded;
 
-static_assert(kBM == 16 * kTM && kBN == 16 * kTN, "thread tile");
-static_assert(kThreads % kBK == 0 && kThreads / kBK * kALoads == kBM, "A loads");
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 fused_resample_kernel(const float* __restrict__ data, long long ld,
-                      const float* __restrict__ r_t, float* __restrict__ y,
-                      long long n_rows, int n_frames, int ipx, int wx, int p2)
+                      const float4* __restrict__ packed,
+                      const int2* __restrict__ bands, float* __restrict__ y,
+                      long long n_rows, int n_frames, int ipx, int wx,
+                      int p2, int split, int vec)
 {
-    __shared__ __align__(16) float As[2][kBK][kAPitch];   // [tap][row]
-    __shared__ __align__(16) float Bs[2][kBK][kBN];       // [tap][column]
+    extern __shared__ __align__(16) float smem[];
+    __shared__ long long row_off[kBM];         // window start, -1 past M
+    __shared__ int row_skew[kBM];              // its offset in a chunk
 
     const int tid = threadIdx.x;
-    const int tx = tid % 16;                   // column group
-    const int ty = tid / 16;                   // row group
-    const long long m0 = (long long)blockIdx.x * kBM;
-    const int n0 = blockIdx.y * kBN;
-
-    // A loader: this thread loads tap a_k of rows a_r + 16*i.
-    const int a_k = tid % kBK;
-    const int a_r = tid / kBK;
-    const float* a_row[kALoads];
-    bool a_ok[kALoads];
-#pragma unroll
-    for (int i = 0; i < kALoads; ++i) {
-        const long long m = m0 + a_r + 16 * i;
-        a_ok[i] = m < n_rows;
-        const long long s = a_ok[i] ? m / n_frames : 0;
-        const long long f = a_ok[i] ? m - s * n_frames : 0;
-        a_row[i] = data + s * ld + f * ipx;
+    const long long m0 = (long long)(blockIdx.x / split) * kBM;
+    const int rank = blockIdx.x % split;
+    if (tid < kBM) {
+        const long long m = m0 + tid;
+        long long off = -1;
+        if (m < n_rows) {
+            const long long s = m / n_frames;
+            off = s * ld + (m - s * n_frames) * ipx;
+        }
+        row_off[tid] = off;
+        row_skew[tid] = vec && off >= 0 ? (int)(off & 3) : 0;
     }
-
-    float a_buf[kALoads];
-    float b_buf[kBLoads];
-    auto load_stage = [&](int k0) {
-        const int k = k0 + a_k;
-#pragma unroll
-        for (int i = 0; i < kALoads; ++i)
-            a_buf[i] = (a_ok[i] && k < wx) ? __ldg(a_row[i] + k) : 0.0f;
-#pragma unroll
-        for (int i = 0; i < kBLoads; ++i) {
-            const int e = tid + kThreads * i;
-            const int kg = k0 + e / kBN;
-            const int ng = n0 + e % kBN;
-            b_buf[i] = (kg < wx && ng < p2)
-                ? __ldg(r_t + (long long)kg * p2 + ng) : 0.0f;
-        }
-    };
-    auto store_stage = [&](int buf) {
-#pragma unroll
-        for (int i = 0; i < kALoads; ++i)
-            As[buf][a_k][a_r + 16 * i] = a_buf[i];
-#pragma unroll
-        for (int i = 0; i < kBLoads; ++i) {
-            const int e = tid + kThreads * i;
-            Bs[buf][e / kBN][e % kBN] = b_buf[i];
-        }
-    };
-
-    float acc[kTM][kTN];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j)
-            acc[i][j] = 0.0f;
-
-    const int n_stages = (wx + kBK - 1) / kBK;
-    load_stage(0);
-    store_stage(0);
     __syncthreads();
-    for (int c = 0; c < n_stages; ++c) {
-        const int buf = c & 1;
-        const bool more = c + 1 < n_stages;
-        if (more)
-            load_stage((c + 1) * kBK);         // in flight during the FMAs
-#pragma unroll
-        for (int kk = 0; kk < kBK; ++kk) {
-            const float4 a_lo =
-                *reinterpret_cast<const float4*>(&As[buf][kk][ty * kTM]);
-            const float4 a_hi =
-                *reinterpret_cast<const float4*>(&As[buf][kk][ty * kTM + 4]);
-            const float a[kTM] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w,
-                                  a_hi.x, a_hi.y, a_hi.z, a_hi.w};
-            float2 b[kTN / 2];
-#pragma unroll
-            for (int j = 0; j < kTN / 2; ++j)
-                b[j] = *reinterpret_cast<const float2*>(
-                    &Bs[buf][kk][32 * j + 2 * tx]);
-#pragma unroll
-            for (int i = 0; i < kTM; ++i)
-#pragma unroll
-                for (int j = 0; j < kTN / 2; ++j) {
-                    acc[i][2 * j] = fmaf(a[i], b[j].x, acc[i][2 * j]);
-                    acc[i][2 * j + 1] = fmaf(a[i], b[j].y, acc[i][2 * j + 1]);
-                }
-        }
-        if (more)
-            store_stage(buf ^ 1);
-        __syncthreads();
-    }
+    RowMajorA afrag;
+    afrag.skew[0] = row_skew[frag_row()];
+    afrag.skew[1] = row_skew[frag_row() + 8];
 
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-        const long long m = m0 + ty * kTM + i;
-        if (m >= n_rows)
-            continue;
-        float* y_row = y + m * p2;
-#pragma unroll
-        for (int j = 0; j < kTN / 2; ++j) {
-            const int n = n0 + 32 * j + 2 * tx;
-            if (n < p2)
-                y_row[n] = acc[i][2 * j];
-            if (n + 1 < p2)
-                y_row[n + 1] = acc[i][2 * j + 1];
+    // Taps [k0, k0 + n_taps) of every row; taps at or past wx, and rows
+    // past M, are zero.  With vec (x 16-byte aligned) a row goes in
+    // kAChunks aligned chunks that start row_skew floats before tap k0.
+    auto load_a = [&](float* as, int k0, int n_taps) {
+        const int n_valid = min(n_taps, wx - k0);
+        if (vec) {
+            for (int i = tid; i < kBM * kAChunks; i += kThreads) {
+                const int r = i / kAChunks, c = i % kAChunks;
+                const long long off = row_off[r];
+                const int skew = row_skew[r];
+                const int n = off >= 0 ? min(skew + n_valid - 4 * c, 4) : 0;
+                cp_async16(as + r * kAPitchRow + 4 * c,
+                           n > 0 ? data + off + k0 - skew + 4 * c : data,
+                           n > 0 ? 4 * n : 0);
+            }
+        } else {
+            for (int i = tid; i < kBM * kBK; i += kThreads) {
+                const int r = i / kBK, c = i % kBK;
+                const long long off = row_off[r];
+                const bool ok = off >= 0 && c < n_valid;
+                cp_async4(as + r * kAPitchRow + c,
+                          ok ? data + off + k0 + c : data, ok ? 4 : 0);
+            }
         }
-    }
+    };
+
+    Acc acc;
+    tile_product(afrag, load_a, packed, bands, (wx + 7) / 8, (p2 + 7) / 8,
+                 blockIdx.y, rank, split, smem, acc);
+
+    const int n0 = blockIdx.y * kBN;
+    epilogue(smem, acc, split, true, [&](int r, int c, float v) {
+        const long long m = m0 + r;
+        if (m < n_rows && n0 + c < p2)
+            y[m * p2 + n0 + c] = v;
+    });
 }
+
+bool k1_smem_allowed[64];      // devices that allowed the ring's memory
 
 }  // namespace
 
 // y [S*n_frames, P2] (row-major, i.e. [S, n_frames*P2]) from data
-// [S, >= (n_frames-1)*ipx + wx] with row stride ld, and r_t [wx, p2]; all
-// float32 on the device.  n_rows = S*n_frames.  Launches on ``stream`` and
+// [S, >= (n_frames-1)*ipx + wx] with row stride ld, and R prepared by
+// ops/banded.py (packed limbs, int32 band table [ceil(p2/8), 2], split);
+// all on the device.  n_rows = S*n_frames.  Launches on ``stream`` and
 // returns the cudaError_t of the launch (0 on success).
 extern "C" int fused_resample_launch(const float* data, long long ld,
-                                     const float* r_t, float* y,
-                                     long long n_rows, int n_frames, int ipx,
-                                     int wx, int p2, void* stream)
+                                     const void* packed, const int* bands,
+                                     float* y, long long n_rows,
+                                     int n_frames, int ipx, int wx, int p2,
+                                     int split, void* stream)
 {
-    if (n_rows <= 0 || n_frames <= 0 || ipx <= 0 || wx <= 0 || p2 <= 0)
+    if (n_rows <= 0 || n_frames <= 0 || ipx <= 0 || wx <= 0 || p2 <= 0
+            || ld <= 0)
         return (int)cudaErrorInvalidValue;
-    const long long gx = (n_rows + kBM - 1) / kBM;
-    const long long gy = (p2 + kBN - 1) / kBN;
-    if (gx > 2147483647LL || gy > 65535)
-        return (int)cudaErrorInvalidValue;
-    dim3 grid((unsigned)gx, (unsigned)gy);
-    fused_resample_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        data, ld, r_t, y, n_rows, n_frames, ipx, wx, p2);
-    return (int)cudaGetLastError();
+    const int vec = (uintptr_t)data % 16 == 0 ? 1 : 0;
+    return (int)launch(fused_resample_kernel, k1_smem_allowed,
+                       (n_rows + kBM - 1) / kBM, p2, split, stream, data, ld,
+                       (const float4*)packed, (const int2*)bands, y, n_rows,
+                       n_frames, ipx, wx, p2, split, vec);
 }

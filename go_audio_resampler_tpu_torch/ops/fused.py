@@ -8,12 +8,15 @@ major kernel ``fused_resample_pallas``:
 ``fused_resample`` launches the hand-written kernel in
 ``csrc/fused_resample.cu`` (built at first use, see ``_build``) for CUDA
 tensors, and computes the plain version for CPU tensors.  There is no
-fallback: a CUDA tensor the kernel does not take raises.
+fallback: a CUDA tensor the kernel does not take raises.  The kernel reads
+R as ``banded.prepare`` lays it out (TF32 limbs and band table), which the
+callers build once with their operator and pass as ``op``.
 
 The TPU module's tile helpers (``frame_tile_for``, ``choose_stream_tile``,
 ``vmem_bytes``) have no counterpart: the CUDA kernel tiles the flattened
-(stream, frame) axis in fixed blocks of 128 rows and masks the ragged
-edges itself, whatever the frame count.
+(stream, frame) axis in fixed blocks of 128 rows and 80 columns and masks
+the ragged edges itself, whatever the frame count; its only choice, the
+cluster split of long bands, follows from the operator.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import functools
 import torch
 
 from . import _build
+from .banded import BandedOperator, resolve
 from .frames import gather_windows
 
 #: Kernel launches so far (a plain integer; callers may reset it to 0).
@@ -67,13 +71,15 @@ def _check(data, r_t, ipx, wx, p2, n_frames):
 
 
 def fused_resample(data: torch.Tensor, r_t: torch.Tensor, *, ipx: int,
-                   wx: int, p2: int, n_frames: int) -> torch.Tensor:
+                   wx: int, p2: int, n_frames: int,
+                   op: BandedOperator | None = None) -> torch.Tensor:
     """y [S, n_frames*p2] with y[s, m*p2 + r] = sum_w data[s, m*ipx + w] *
     r_t[w, r].
 
     CUDA tensors go to the kernel, which takes contiguous float32 ``data``
     and ``r_t`` on one device and raises on anything else; CPU tensors get
-    :func:`fused_resample_reference`.
+    :func:`fused_resample_reference`.  ``op`` is ``banded.prepare(r_t)``;
+    without it a CUDA call prepares R itself (a host round trip).
     """
     global launches
     _check(data, r_t, ipx, wx, p2, n_frames)
@@ -94,11 +100,13 @@ def fused_resample(data: torch.Tensor, r_t: torch.Tensor, *, ipx: int,
                     device=data.device)
     if y.numel() == 0:
         return y
+    op = resolve(op, r_t, "fused_resample")
     fn = _launcher()
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(data.data_ptr(), data.stride(0), r_t.data_ptr(),
-                 y.data_ptr(), s * n_frames, n_frames, ipx, wx, p2, stream)
+        err = fn(data.data_ptr(), data.stride(0), op.packed.data_ptr(),
+                 op.bands.data_ptr(), y.data_ptr(), s * n_frames, n_frames,
+                 ipx, wx, p2, op.split, stream)
     if err:
         raise RuntimeError(f"fused_resample: kernel launch failed with CUDA "
                            f"error {err} (S={s}, n_frames={n_frames}, "
@@ -113,6 +121,7 @@ def _launcher():
     fn = _build.load(_SOURCE).fused_resample_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
     return fn

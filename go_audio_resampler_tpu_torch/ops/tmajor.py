@@ -9,13 +9,15 @@ time-major kernel ``fused_resample_tmajor``:
 ``fused_resample_tmajor`` launches the hand-written kernel in
 ``csrc/fused_resample_tmajor.cu`` (built at first use, see ``_build``) for
 CUDA tensors, and computes the plain version for CPU tensors.  There is no
-fallback: a CUDA tensor the kernel does not take raises.
+fallback: a CUDA tensor the kernel does not take raises.  The kernel runs
+K1's tile product and reads R as ``banded.prepare`` lays out R_t = r.T
+(the same prepared operator serves K1 and K2), passed as ``op``.
 
 The TPU module's ``kf`` (frames per grid step), ``choose_tmajor_tile``,
 ``choose_tmajor_kf`` and ``tmajor_vmem_bytes`` only size TPU tiles to its
-scoped VMEM and have no counterpart: the CUDA kernel runs one frame per
-block over fixed tiles of 160 rows x 128 streams and masks the ragged
-edges itself, whatever the frame and stream counts.
+scoped VMEM and have no counterpart: the CUDA kernel runs 128 streams of
+one frame times 80 output rows per block and masks the ragged edges
+itself, whatever the frame and stream counts.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import functools
 import torch
 
 from . import _build
+from .banded import BandedOperator, resolve
 
 #: Kernel launches so far (a plain integer; callers may reset it to 0).
 launches = 0
@@ -70,13 +73,16 @@ def _check(xt, r, ipx, wx, p2, n_frames):
 
 
 def fused_resample_tmajor(xt: torch.Tensor, r: torch.Tensor, *, ipx: int,
-                          wx: int, p2: int, n_frames: int) -> torch.Tensor:
+                          wx: int, p2: int, n_frames: int,
+                          op: BandedOperator | None = None) -> torch.Tensor:
     """yT [n_frames*p2, S] with yT[m*p2 + r_, s] = sum_w r[r_, w] *
     xT[m*ipx + w, s].
 
     CUDA tensors go to the kernel, which takes contiguous float32 ``xt``
     and ``r`` on one device and raises on anything else; CPU tensors get
-    :func:`fused_resample_tmajor_reference`.
+    :func:`fused_resample_tmajor_reference`.  ``op`` is
+    ``banded.prepare(r.T)``; without it a CUDA call prepares R itself (a
+    host round trip).
     """
     global launches
     _check(xt, r, ipx, wx, p2, n_frames)
@@ -97,11 +103,13 @@ def fused_resample_tmajor(xt: torch.Tensor, r: torch.Tensor, *, ipx: int,
                     device=xt.device)
     if y.numel() == 0:
         return y
+    op = resolve(op, r.t(), "fused_resample_tmajor")
     fn = _launcher()
     with torch.cuda.device(xt.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xt.data_ptr(), xt.stride(0), r.data_ptr(), y.data_ptr(),
-                 n_frames, s, ipx, wx, p2, stream)
+        err = fn(xt.data_ptr(), xt.stride(0), op.packed.data_ptr(),
+                 op.bands.data_ptr(), y.data_ptr(), n_frames, s, ipx, wx, p2,
+                 op.split, stream)
     if err:
         raise RuntimeError(
             f"fused_resample_tmajor: kernel launch failed with CUDA error "
@@ -117,6 +125,7 @@ def _launcher():
     fn = _build.load(_SOURCE).fused_resample_tmajor_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
     return fn

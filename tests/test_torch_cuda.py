@@ -11,7 +11,8 @@ root (``--noconftest`` skips the JAX set-up of ``tests/conftest.py``):
 
 Oracles are the port's own plain versions, with TF32 off: the kernel is
 held against its plain version in float32 to 2e-5 (summation order
-differs), each entry point against its float64 CPU run to 2e-5.
+differs; K1 and K2 compute in three TF32 passes on the tensor cores),
+each entry point against its float64 CPU run to 2e-5.
 """
 
 import importlib
@@ -23,7 +24,7 @@ import torch
 from go_audio_resampler_tpu_torch import (EngineCore, Quality,
                                           TimeMajorEngine, oneshot as run_oneshot,
                                           plan_engine)
-from go_audio_resampler_tpu_torch.ops import fused, general, tmajor
+from go_audio_resampler_tpu_torch.ops import banded, fused, general, tmajor
 
 # engine/__init__ exports the function oneshot under the module's name.
 oneshot = importlib.import_module("go_audio_resampler_tpu_torch.engine.oneshot")
@@ -240,6 +241,81 @@ def test_k2_k3_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError, match="int32 or int64"):
         general.general_resample(x, m, starts.float(), **gk)
     assert (tmajor.launches, general.launches) == before
+
+
+# -- K1 and K2 at the decimation operator ----------------------------------------
+
+def _decim_operator(device):
+    """R_t of 48k -> 16k HIGH as the engines use it at block 2048
+    ([2882, 512] over 1536), on ``device``."""
+    eng = EngineCore(plan_engine(48000, 16000, Quality.HIGH), block=2048,
+                     device="cpu")
+    r_t, ipx, wx, p2 = eng._band[:4]
+    return r_t.to(device), ipx, wx, p2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,nf", [(256, 2), (37, 5), (1, 1)])
+def test_k1_k2_match_plain_versions_at_the_decimation_operator(cuda, s, nf):
+    rt, ipx, wx, p2 = _decim_operator(cuda)
+    op = banded.prepare(rt)
+    assert op.split == 8
+    x = _data(s, (nf - 1) * ipx + wx + 7, cuda, s)
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=nf)
+    before = (fused.launches, tmajor.launches)
+    y1 = fused.fused_resample(x, rt, op=op, **kw)
+    y2 = tmajor.fused_resample_tmajor(x.t().contiguous(), rt.t().contiguous(),
+                                      op=op, **kw)
+    torch.cuda.synchronize()
+    assert (fused.launches, tmajor.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    ref = fused.fused_resample_reference(x, rt, **kw)
+    assert y1.shape == ref.shape == (s, nf * p2)
+    assert (y1 - ref).abs().max().item() <= TOL
+    assert (y2.t() - ref).abs().max().item() <= TOL
+    assert torch.equal(y2, y1.t())              # K2 == K1 bit for bit
+
+
+@pytest.mark.cuda
+def test_bits_do_not_depend_on_streams_or_frames_with_the_cluster_split(
+        cuda):
+    """With the decimation operator's band split across clusters of 8, an
+    output's bits do not depend on how many streams or frames a launch
+    holds, in K1 or K2."""
+    rt, ipx, wx, p2 = _decim_operator(cuda)
+    op = banded.prepare(rt)
+    x = _data(300, 5 * ipx + wx, cuda, 7)
+    kw = dict(ipx=ipx, wx=wx, p2=p2, op=op)
+    whole = fused.fused_resample(x, rt, n_frames=6, **kw)
+    assert torch.equal(fused.fused_resample(x[:37].contiguous(), rt,
+                                            n_frames=6, **kw), whole[:37])
+    assert torch.equal(fused.fused_resample(x[:, 2 * ipx:].contiguous(), rt,
+                                            n_frames=3, **kw),
+                       whole[:, 2 * p2:5 * p2])
+    r = rt.t().contiguous()
+    xt = x.t().contiguous()
+    whole_t = tmajor.fused_resample_tmajor(xt, r, n_frames=6, **kw)
+    assert torch.equal(whole_t, whole.reshape(300, 6, p2).permute(
+        1, 2, 0).reshape(6 * p2, 300))
+    assert torch.equal(tmajor.fused_resample_tmajor(
+        xt[:, 5:42].contiguous(), r, n_frames=6, **kw), whole_t[:, 5:42])
+    assert torch.equal(tmajor.fused_resample_tmajor(
+        xt[ipx:].contiguous(), r, n_frames=5, **kw), whole_t[p2:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rates_q", [PLANS[0], (48000, 16000, Quality.HIGH)])
+def test_prepare_on_the_card_equals_the_host(cuda, rates_q):
+    eng = EngineCore(plan_engine(*rates_q), block=2048, device="cpu")
+    r_t = eng._band.r_t
+    host = banded.prepare(r_t)
+    card = banded.prepare(r_t.to(cuda))
+    assert card.packed.device.type == card.bands.device.type == "cuda"
+    assert torch.equal(card.packed.cpu(), host.packed)
+    assert torch.equal(card.bands.cpu(), host.bands)
+    assert (card.split, card.wx, card.p2) == (host.split, host.wx, host.p2)
+    dev = EngineCore(plan_engine(*rates_q), block=2048)
+    assert torch.equal(dev._band.op.packed.cpu(), host.packed)
 
 
 # -- entry points ----------------------------------------------------------------

@@ -47,7 +47,7 @@ def _cd_dat_operator():
     """(R [p2, wx] float64, ipx, wx, p2) of 44.1k->48k HIGH."""
     eng = EngineCore(plan_engine(44100, 48000, Quality.HIGH), device="cpu",
                      dtype=torch.float64)
-    r_t, ipx, wx, p2, _ = eng._band
+    r_t, ipx, wx, p2 = eng._band[:4]
     return r_t.t().contiguous().numpy(), ipx, wx, p2
 
 
