@@ -266,6 +266,21 @@ def kernel_phase(gen) -> dict:
     require(tuple(x_main.shape) == (STREAMS, 2646), tuple(x_main.shape))
     errs = [err]
     errs.append(check("ragged", 5, 13, rt, ipx, wx, p2, extra=5)[2])
+    # Rows that start off a 16-byte boundary take the 4-byte staging; the
+    # bits equal those of the same data aligned.
+    kw13 = dict(ipx=ipx, wx=wx, p2=p2, n_frames=13, op=op)
+    x_odd = torch.randn(6 * 2112 + 3, generator=gen,
+                        device="cuda")[3:].view(6, 2112)
+    y_odd = fused.fused_resample(x_odd, rt, **kw13)
+    err = (y_odd - fused.fused_resample_reference(
+        x_odd, rt, ipx=ipx, wx=wx, p2=p2, n_frames=13)).abs().max().item()
+    same = torch.equal(y_odd, fused.fused_resample(x_odd.clone(), rt, **kw13))
+    print(f"  K1 unaligned rows: data {tuple(x_odd.shape)} at a 12-byte "
+          f"offset: max |kernel - plain| = {err:.3g}; equal to the aligned "
+          f"copy's bits: {same}")
+    require(x_odd.data_ptr() % 16 and err <= KERNEL_TOL and same,
+            f"K1 unaligned rows: error {err}, bits equal {same}")
+    errs.append(err)
     rt2, ipx2, wx2, p22 = operator(Quality.HIGH, RATE_OUT, RATE_IN)
     require((tuple(rt2.shape), ipx2) == ((351, 147), 160), (rt2.shape, ipx2))
     errs.append(check("48k->44.1k", 37, 20, rt2, ipx2, wx2, p22)[2])

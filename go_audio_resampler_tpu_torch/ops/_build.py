@@ -44,8 +44,8 @@ def _nvcc() -> str:
 
 
 def sources(name: str) -> list[Path]:
-    """``csrc/<name>.cu`` and the local headers it includes, recursively
-    (an include that is not a file beside its includer is left to nvcc)."""
+    """``csrc/<name>.cu`` and the headers it includes with quotes (files
+    beside it), recursively."""
     found, todo = [], [CSRC / f"{name}.cu"]
     while todo:
         path = todo.pop()
@@ -53,8 +53,7 @@ def sources(name: str) -> list[Path]:
             continue
         found.append(path)
         todo += [path.parent / inc
-                 for inc in _INCLUDE.findall(path.read_text())
-                 if (path.parent / inc).is_file()]
+                 for inc in _INCLUDE.findall(path.read_text())]
     return found
 
 

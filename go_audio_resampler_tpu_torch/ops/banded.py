@@ -78,23 +78,22 @@ def split_limbs(r_t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32_round(r_t - hi)
 
 
-def band_table(r_t: torch.Tensor, tile_n: int = BAND_N,
-               k_step: int = K_STEP) -> torch.Tensor:
-    """[ceil(p2/tile_n), 2] int32 on the host: for each tile of ``tile_n``
-    columns of R_t [wx, p2], the k-steps ``[lo, hi)`` (units of ``k_step``
+def band_table(r_t: torch.Tensor) -> torch.Tensor:
+    """[ceil(p2/BAND_N), 2] int32 on the host: for each block of BAND_N
+    columns of R_t [wx, p2], the k-steps ``[lo, hi)`` (units of K_STEP
     taps counted from w = 0) that cover all its non-zero taps; ``[0, 0)``
-    where the tile is all zero."""
+    where the block is all zero."""
     wx, p2 = r_t.shape
-    n_tiles = -(-p2 // tile_n)
-    nz = torch.zeros((wx, n_tiles * tile_n), dtype=torch.bool)
+    n_blocks = -(-p2 // BAND_N)
+    nz = torch.zeros((wx, n_blocks * BAND_N), dtype=torch.bool)
     nz[:, :p2] = (r_t != 0).cpu()
-    nz = nz.view(wx, n_tiles, tile_n).any(dim=2)          # [wx, tiles]
-    table = torch.zeros((n_tiles, 2), dtype=torch.int32)
-    for j in range(n_tiles):
+    nz = nz.view(wx, n_blocks, BAND_N).any(dim=2)         # [wx, blocks]
+    table = torch.zeros((n_blocks, 2), dtype=torch.int32)
+    for j in range(n_blocks):
         taps = torch.nonzero(nz[:, j]).flatten()
         if taps.numel():
-            table[j, 0] = int(taps[0]) // k_step
-            table[j, 1] = int(taps[-1]) // k_step + 1
+            table[j, 0] = int(taps[0]) // K_STEP
+            table[j, 1] = int(taps[-1]) // K_STEP + 1
     return table
 
 

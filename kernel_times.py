@@ -16,8 +16,9 @@ Shapes: 44.1 kHz -> 48 kHz HIGH, 1024 streams, one 2352-sample step
 ([1024, 2646] data, R_t [343, 160], 16 frames); 48 kHz -> 16 kHz HIGH,
 256 streams, one 3072-sample step ([256, 4422] data, R_t [2882, 512], 2
 frames).  K2 takes the same data transposed.  Each time is a CUDA graph of
-20 launches replayed 10 times, so the host's enqueue time is not counted.
-Inputs come from ``--seed``; TF32 is off for the plain versions.
+20 launches replayed 10 times (``chip_smoke.graph_ms``), so the host's
+enqueue time is not counted.  Inputs come from ``--seed``; TF32 is off
+for the plain versions.
 """
 
 from __future__ import annotations
@@ -29,30 +30,7 @@ import os
 import subprocess
 import sys
 
-
-def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
-    """Mean device time of one call of ``fn`` in ms (CUDA graph replay)."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (reps * iters)
+from chip_smoke import graph_ms
 
 
 def main() -> int:

@@ -77,6 +77,29 @@ def test_kernel_matches_plain_version(cuda, s, nf, rates_q):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_kernels_take_rows_that_start_off_a_16_byte_boundary(cuda, offset):
+    """K1 stages 16-byte chunks only where the data is 16-byte aligned;
+    a contiguous view that starts ``offset`` floats into its storage goes
+    through its 4-byte copies, with the same bits.  K2 likewise where the
+    row stride is not a multiple of 4 floats."""
+    rt, ipx, wx, p2 = _operator(PLANS[0], False, cuda)
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=9)
+    n = 8 * ipx + wx
+    store = _data(1, offset + 6 * n, cuda, offset).reshape(-1)
+    x = store[offset:].view(6, n)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    y = fused.fused_resample(x, rt, **kw)
+    assert torch.equal(y, fused.fused_resample(x.clone(), rt, **kw))
+    ref = fused.fused_resample_reference(x, rt, **kw)
+    assert (y - ref).abs().max().item() <= TOL
+    xt = _data(n, 4 + offset, cuda, 9)                   # ld % 4 != 0
+    yt = tmajor.fused_resample_tmajor(xt, rt.t().contiguous(), **kw)
+    assert torch.equal(yt, fused.fused_resample(xt.t().contiguous(), rt,
+                                                **kw).t())
+
+
+@pytest.mark.cuda
 def test_kernel_output_bits_do_not_depend_on_the_launch(cuda):
     """One launch over 32 frames equals two launches of 16, bit for bit."""
     rt, ipx, wx, p2 = _operator(PLANS[0], False, cuda)
