@@ -143,9 +143,11 @@ def prepare(r_t: torch.Tensor) -> BandedOperator:
     operators, the banded convolution); reads R_t back to the host once
     for its band table.
     """
-    if r_t.dim() != 2 or r_t.dtype != torch.float32:
-        raise ValueError(f"prepare: R_t [wx, p2] float32 expected, got "
-                         f"{tuple(r_t.shape)} {r_t.dtype}")
+    if r_t.dim() != 2:
+        raise ValueError(f"prepare: R_t [wx, p2] expected, got "
+                         f"{tuple(r_t.shape)}")
+    if r_t.dtype != torch.float32:
+        raise TypeError(f"prepare: the kernels take float32, got {r_t.dtype}")
     wx, p2 = r_t.shape
     hi, lo = split_limbs(r_t.contiguous())
     bands = band_table(r_t)

@@ -155,8 +155,10 @@ def test_prepare_checks_and_resolve():
     assert banded.resolve(None, r_t, "k").split == op.split
     with pytest.raises(ValueError, match="prepared for"):
         banded.resolve(op, r_t[:, :100], "k")
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(TypeError, match="float32"):
         banded.prepare(r_t.double())
+    with pytest.raises(ValueError, match="wx, p2"):
+        banded.prepare(r_t[None])
     assert banded.prepare_on_card(r_t) is None          # a CPU tensor
 
 
