@@ -204,7 +204,8 @@ def banded_cost(rt, op, rows: int, data_elems: int) -> dict:
             "bound_f32_fma_by": "bytes" if t_bytes >= f32 else "operations",
             "bound_ms": tc,
             "bound_by": "bytes" if t_bytes >= tc else "operations",
-            "blocks": (-(-rows // banded.TILE_M)) * len(tiles) * op.split}
+            "blocks": (-(-rows // banded.tile_rows(op.split))) * len(tiles)
+            * op.split}
 
 
 def time_banded(label: str, kernel, plain, libraries: dict,
@@ -861,11 +862,11 @@ def oneshot_phase(gen, card: str) -> tuple[int, int]:
 
         span_ms = cuda_ms(apply, 10, warmup=1)
         kernels = device_kernels(apply, 5)
-        kname = "general_resample_kernel(" if want_k3 else \
-            "fused_resample_kernel("
+        kname = "general_resample_kernel" if want_k3 else \
+            "fused_resample_kernel"
         kernel_ms = sum(ms for key, ms, _ in kernels if kname in key)
         busy_ms = sum(ms for _, ms, _ in kernels)
-        require(kernel_ms > 0, f"{name}: no {kname[:-1]} in the trace")
+        require(kernel_ms > 0, f"{name}: no {kname} in the trace")
         mbytes = sum(a.nbytes for a in host) / 1e6
         print(f"  one-shot {name}: [{ONESHOT_STREAMS}, {n}] -> "
               f"{tuple(y.shape)} == canonical; launches K1 {k1}, K3 {k3}; "
@@ -873,7 +874,7 @@ def oneshot_phase(gen, card: str) -> tuple[int, int]:
               f"design {t1 - t0:.3f} s ({mbytes:.1f} MB of float64 "
               f"operators), upload {t2 - t1:.4f} s, entry point "
               f"{wall:.4f} s on {card}")
-        print(f"  one-shot {name}: device {kname[:-1]} {kernel_ms:.5f} ms, "
+        print(f"  one-shot {name}: device {kname} {kernel_ms:.5f} ms, "
               f"all kernels {busy_ms:.5f} ms (torch.profiler); "
               f"_oneshot_apply span {span_ms:.5f} ms (CUDA events)")
         for key, ms, count in kernels:

@@ -33,8 +33,6 @@ K_STEP = 8
 BAND_N = 8
 #: output columns per block
 TILE_N = 80
-#: signal rows per block
-TILE_M = 128
 #: k-steps a block walks before its tile's band is split across a
 #: thread-block cluster
 SPLIT_KSTEPS = 48
@@ -134,6 +132,14 @@ def pack_fragments(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     # tap 8*ks + 4*half + tap of column 8*nb + col
     v = limbs.view(2, ks, 2, 4, nb, 8).permute(4, 1, 0, 2, 5, 3)
     return v.contiguous().view(nb, ks, 32, 4)
+
+
+def tile_rows(split: int) -> int:
+    """Signal rows per block for an operator of this split: 256 (four
+    warpgroups, one block an SM) where one block walks a column tile's
+    whole band, 128 (two warpgroups, two blocks an SM) where a cluster
+    shares it."""
+    return 256 if split == 1 else 128
 
 
 def prepare(r_t: torch.Tensor) -> BandedOperator:

@@ -1,11 +1,12 @@
 // The tile product that K1 (fused_resample.cu) and K2
-// (fused_resample_tmajor.cu) share: a block of kBM = 128 signal rows times
-// kBN = 80 output columns of the periodic banded operator R, on Hopper's
-// tensor cores (wgmma), in 3xTF32 with float32 accumulation.
+// (fused_resample_tmajor.cu) share: a block of 256 or 128 signal rows
+// (Tile<WG>::kBM) times kBN = 80 output columns of the periodic banded
+// operator R, on Hopper's tensor cores (wgmma), in 3xTF32 with float32
+// accumulation.
 //
 // Operands.  A is the signal: A[row, w] is tap w of the row's window (K1
 // stages it row by row, K2 tap by tap; the fragments read the same values),
-// held in registers in the m16n8k8 fragment layout, each of the block's two
+// held in registers in the m16n8k8 fragment layout, each of the block's
 // warpgroups 64 rows.  B is R, prepared once with the operator by
 // ops/banded.py: its TF32 hi and lo limbs, for each 8-column block and
 // k-step two 8 x 4 core matrices per limb, the K-major layout wgmma reads
@@ -42,11 +43,12 @@
 // Staging.  A ring of kStages stages in shared memory, each kKS k-steps of
 // A and B, filled with cp.async (16 bytes where the signal is aligned, 4
 // bytes otherwise; ragged edges zero-filled by the copy's source size).
-// 8 warps a block, two blocks an SM (16 warps), 128 registers a thread.
+// 16 warps an SM, 128 registers a thread, in either block shape (Tile).
 //
 // Measured on an H100 (see PERF.md): the tensor cores are not what binds.
-// A block's loads from L2 (its rows' taps and R's limbs, ~20 KB a stage)
-// and the work around them take most of its time.
+// A block's loads from L2 (its rows' taps and R's limbs, 20-30 KB a stage)
+// and the work around them take most of its time; the tall block halves
+// the loads of B per row.
 
 #pragma once
 
@@ -58,29 +60,38 @@ namespace banded {
 
 namespace cg = cooperative_groups;
 
-constexpr int kWarpgroups = 2;                 // each 64 rows x kBN columns
-constexpr int kBlocksPerSM = 2;                // 16 warps, 128 registers
-constexpr int kThreads = 128 * kWarpgroups;
-constexpr int kBM = 64 * kWarpgroups;          // 128 signal rows a block
 constexpr int kBN = 80;                        // output columns a block
 constexpr int kNB = kBN / 8;                   // n8 blocks (band entries)
 constexpr int kKS = 2;                         // k-steps per stage
 constexpr int kBK = 8 * kKS;                   // taps per stage
 constexpr int kStages = 4;
 constexpr int kAChunks = kBK / 4 + 1;          // 16-byte chunks of a row
-constexpr int kAPitchRow = 4 * kAChunks;       // row-major A [kBM][..]
-constexpr int kAPitchTap = kBM + 8;            // tap-major A [kBK][..]
-constexpr int kAFloats = kBM * kAPitchRow > kBK * kAPitchTap
-    ? kBM * kAPitchRow : kBK * kAPitchTap;
+constexpr int kAPitchRow = 4 * kAChunks;       // row-major A [rows][..]
 constexpr int kBChunks = kKS * kNB * 32;       // 16-byte chunks of B a stage
-constexpr int kStageFloats = kAFloats + 4 * kBChunks;
-constexpr int kSmemBytes = kStages * kStageFloats * 4;
-constexpr int kCPitch = kBN + 1;               // epilogue tile [kBM][..]
+constexpr int kCPitch = kBN + 1;               // epilogue tile [rows][..]
 constexpr int kMaxSplit = 8;                   // largest cluster
 
-static_assert(kBM * kCPitch <= kStages * kStageFloats, "epilogue fits");
-static_assert(kAFloats % 32 == 0 && kStageFloats % 32 == 0,
-              "128-byte aligned B tiles");
+// Two block shapes, chosen from the operator alone: where one block walks
+// a column tile's whole band (split 1), four warpgroups (256 rows, one
+// block an SM) share each stage of B; where the band is split across a
+// cluster, two (128 rows, two blocks an SM) keep enough blocks in flight.
+constexpr int kTallWarpgroups = 4;
+constexpr int kShortWarpgroups = 2;
+
+template <int WG>
+struct Tile {
+    static constexpr int kThreads = 128 * WG;
+    static constexpr int kBM = 64 * WG;        // signal rows a block
+    static constexpr int kBlocksPerSM = WG == kShortWarpgroups ? 2 : 1;
+    static constexpr int kAPitchTap = kBM + 8; // tap-major A [kBK][..]
+    static constexpr int kAFloats = kBM * kAPitchRow > kBK * kAPitchTap
+        ? kBM * kAPitchRow : kBK * kAPitchTap;
+    static constexpr int kStageFloats = kAFloats + 4 * kBChunks;
+    static constexpr int kSmemBytes = kStages * kStageFloats * 4;
+    static_assert(kBM * kCPitch <= kStages * kStageFloats, "epilogue fits");
+    static_assert(kAFloats % 32 == 0 && kStageFloats % 32 == 0,
+                  "128-byte aligned B tiles");
+};
 
 __device__ __forceinline__ unsigned smem_addr(const void* p)
 {
@@ -197,11 +208,12 @@ struct RowMajorA {
     }
 };
 
+template <int WG>
 struct TapMajorA {
     __device__ __forceinline__ float at(const float* as, int, int row,
                                         int k) const
     {
-        return as[k * kAPitchTap + row];
+        return as[k * Tile<WG>::kAPitchTap + row];
     }
 };
 
@@ -272,12 +284,15 @@ __device__ __forceinline__ void stage_product(const AFrag& afrag,
 // table.  Each stage's products start from zero and are added to acc in
 // float32, so that the tensor cores' accumulation never runs over more
 // than one stage.
-template <class AFrag, class LoadA>
+template <int WG, class AFrag, class LoadA>
 __device__ __forceinline__ void tile_product(
     const AFrag& afrag, LoadA load_a, const float4* __restrict__ packed,
     const int2* __restrict__ bands, int ks_total, int nb_total, int tile_n,
     int rank, int split, float* smem, Acc& acc)
 {
+    constexpr int kThreads = Tile<WG>::kThreads;
+    constexpr int kAFloats = Tile<WG>::kAFloats;
+    constexpr int kStageFloats = Tile<WG>::kStageFloats;
     __shared__ int2 sband[kNB];
     const int tid = threadIdx.x;
     const int nb0 = tile_n * kNB;
@@ -356,11 +371,12 @@ __device__ __forceinline__ void tile_product(
 // row-major output) the sums are stored as they are formed; else (K2's
 // transposed output) they go back to this block's tile first and leave
 // with consecutive threads on consecutive rows.
-template <class Store>
+template <int WG, class Store>
 __device__ __forceinline__ void epilogue(float* smem, const Acc& acc,
                                          int split, bool col_fastest,
                                          Store store)
 {
+    constexpr int kThreads = Tile<WG>::kThreads, kBM = Tile<WG>::kBM;
     const int tid = threadIdx.x, t = tid & 3;
     const int r = frag_row();
     float* cs = smem;
@@ -416,11 +432,13 @@ __device__ __forceinline__ void epilogue(float* smem, const Acc& acc,
 // `allowed` is the kernel's own per-device record of that allowance (a
 // variable with internal linkage in the kernel's source, so that no two
 // libraries share it).
-template <class Kernel, class... Args>
+template <int WG, class Kernel, class... Args>
 inline cudaError_t launch(Kernel kernel, bool (&allowed)[64],
                           long long row_tiles, int p2, int split,
                           void* stream, Args... args)
 {
+    constexpr int kThreads = Tile<WG>::kThreads;
+    constexpr int kSmemBytes = Tile<WG>::kSmemBytes;
     const long long gx = row_tiles * split;
     const long long gy = (p2 + kBN - 1) / kBN;
     if (gx <= 0 || gx > 2147483647LL || gy > 65535

@@ -29,16 +29,17 @@
 // instead of float32 FMAs, at float32 accuracy; each block walks only the
 // band of R's non-zero taps of its 80 output columns (R is 57% non-zero at
 // 44.1k->48k and 47% at 48k->16k), each 8-column block of B zero outside
-// its own band; 128-row x 80-column blocks, 256 at the main shape, and at
-// the decimation shape 224 with the long bands split across clusters of
-// 8 (one wave at two blocks an SM); a four-stage cp.async ring of 2
-// k-steps.  The rows of a block are windows of up to 128 frames of one or
-// more streams, each staged from x in place: in 16-byte chunks from the
-// 16-byte boundary below the window's tap (x aligned), the fragments
-// reading past the skew; else 4 bytes at a time.  Offsets are 64-bit.
-// Measured on an H100 (PERF.md): 0.04 ms at the main shape and 0.03 ms at
-// the decimation shape, bound by the block's loads from L2 and the work
-// around them, not by the tensor cores.
+// its own band; a four-stage cp.async ring of 2 k-steps.  Block shape from
+// the operator: 256 rows where one block walks a band (the main shape:
+// 128 blocks, one an SM), 128 rows with the long bands split across
+// clusters of 8 (the decimation shape: 224 blocks, two an SM).  The rows
+// of a block are windows of frames of one or more streams, each staged
+// from x in place: in 16-byte chunks from the 16-byte boundary below the
+// window's tap (x aligned), the fragments reading past the skew; else 4
+// bytes at a time.  Offsets are 64-bit.  Measured on an H100 (PERF.md):
+// 0.036 ms at the main shape and 0.030 ms at the decimation shape, bound
+// by the block's loads from L2 and the work around them, not by the
+// tensor cores.
 
 #include "banded_mma.cuh"
 
@@ -46,13 +47,16 @@ namespace {
 
 using namespace banded;
 
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+template <int WG>
+__global__ void __launch_bounds__(Tile<WG>::kThreads,
+                                  Tile<WG>::kBlocksPerSM)
 fused_resample_kernel(const float* __restrict__ data, long long ld,
                       const float4* __restrict__ packed,
                       const int2* __restrict__ bands, float* __restrict__ y,
                       long long n_rows, int n_frames, int ipx, int wx,
                       int p2, int split, int vec)
 {
+    constexpr int kBM = Tile<WG>::kBM, kThreads = Tile<WG>::kThreads;
     extern __shared__ __align__(16) float smem[];
     __shared__ long long row_off[kBM];         // window start, -1 past M
     __shared__ int row_skew[kBM];              // its offset in a chunk
@@ -102,18 +106,30 @@ fused_resample_kernel(const float* __restrict__ data, long long ld,
     };
 
     Acc acc;
-    tile_product(afrag, load_a, packed, bands, (wx + 7) / 8, (p2 + 7) / 8,
-                 blockIdx.y, rank, split, smem, acc);
+    tile_product<WG>(afrag, load_a, packed, bands, (wx + 7) / 8,
+                     (p2 + 7) / 8, blockIdx.y, rank, split, smem, acc);
 
     const int n0 = blockIdx.y * kBN;
-    epilogue(smem, acc, split, true, [&](int r, int c, float v) {
+    epilogue<WG>(smem, acc, split, true, [&](int r, int c, float v) {
         const long long m = m0 + r;
         if (m < n_rows && n0 + c < p2)
             y[m * p2 + n0 + c] = v;
     });
 }
 
-bool k1_smem_allowed[64];      // devices that allowed the ring's memory
+// Devices that allowed each block shape's ring memory (short, tall).
+bool k1_smem_allowed[2][64];
+
+template <int WG, class... Args>
+int launch_k1(long long n_rows, int p2, int split, void* stream,
+              Args... args)
+{
+    constexpr int kBM = Tile<WG>::kBM;
+    return (int)launch<WG>(fused_resample_kernel<WG>,
+                           k1_smem_allowed[WG == kTallWarpgroups],
+                           (n_rows + kBM - 1) / kBM, p2, split, stream,
+                           args...);
+}
 
 }  // namespace
 
@@ -132,8 +148,11 @@ extern "C" int fused_resample_launch(const float* data, long long ld,
             || ld <= 0)
         return (int)cudaErrorInvalidValue;
     const int vec = (uintptr_t)data % 16 == 0 ? 1 : 0;
-    return (int)launch(fused_resample_kernel, k1_smem_allowed,
-                       (n_rows + kBM - 1) / kBM, p2, split, stream, data, ld,
-                       (const float4*)packed, (const int2*)bands, y, n_rows,
-                       n_frames, ipx, wx, p2, split, vec);
+    if (split == 1)
+        return launch_k1<kTallWarpgroups>(
+            n_rows, p2, split, stream, data, ld, (const float4*)packed,
+            (const int2*)bands, y, n_rows, n_frames, ipx, wx, p2, split, vec);
+    return launch_k1<kShortWarpgroups>(
+        n_rows, p2, split, stream, data, ld, (const float4*)packed,
+        (const int2*)bands, y, n_rows, n_frames, ipx, wx, p2, split, vec);
 }

@@ -23,18 +23,18 @@
 // the operations.
 //
 // Design, for those bounds: K1's tile product, the same 3xTF32 wgmma over
-// the band of R's non-zero taps of 80 output columns, with the same
-// 128 x 80 blocks, the same cluster split of long bands and the same
-// four-stage cp.async ring.  A block owns 128 streams of one frame.  The
-// slab is staged tap by tap, each tap's 128 streams in 16-byte copies
-// where the rows are aligned, into a tap-major tile whose fragment reads
-// are free of bank conflicts; the output tile goes through shared memory
-// and leaves in runs of consecutive streams.  Every output is computed
-// from the same values, in the same k-steps and order, as K1's, so on the
-// same data K2 equals K1 bit for bit, and an output's bits do not depend
-// on the launch.  Offsets are 64-bit.  Measured on an H100 (PERF.md):
-// 0.04 ms at the main shape and 0.03 ms at the decimation shape, bound by
-// the block's loads and the work around them, not by the tensor cores.
+// the band of R's non-zero taps of 80 output columns, with the same block
+// shapes, the same cluster split of long bands and the same four-stage
+// cp.async ring.  A block owns 256 or 128 streams of one frame.  The slab
+// is staged tap by tap, each tap's streams in 16-byte copies where the
+// rows are aligned, into a tap-major tile whose fragment reads are free of
+// bank conflicts; the output tile goes through shared memory and leaves
+// in runs of consecutive streams.  Every output is computed from the same
+// values, in the same k-steps and order, as K1's, so on the same data K2
+// equals K1 bit for bit, and an output's bits do not depend on the
+// launch.  Offsets are 64-bit.  Measured on an H100 (PERF.md): 0.033 ms
+// at the main shape and 0.028 ms at the decimation shape, bound by the
+// block's loads and the work around them, not by the tensor cores.
 
 #include "banded_mma.cuh"
 
@@ -42,13 +42,17 @@ namespace {
 
 using namespace banded;
 
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+template <int WG>
+__global__ void __launch_bounds__(Tile<WG>::kThreads,
+                                  Tile<WG>::kBlocksPerSM)
 fused_resample_tmajor_kernel(const float* __restrict__ xt, long long ld,
                              const float4* __restrict__ packed,
                              const int2* __restrict__ bands,
                              float* __restrict__ yt, int n_streams, int ipx,
                              int wx, int p2, int split, int vec)
 {
+    constexpr int kBM = Tile<WG>::kBM, kThreads = Tile<WG>::kThreads;
+    constexpr int kAPitchTap = Tile<WG>::kAPitchTap;
     extern __shared__ __align__(16) float smem[];
 
     const int tid = threadIdx.x;
@@ -83,17 +87,29 @@ fused_resample_tmajor_kernel(const float* __restrict__ xt, long long ld,
     };
 
     Acc acc;
-    tile_product(TapMajorA{}, load_a, packed, bands, (wx + 7) / 8,
-                 (p2 + 7) / 8, blockIdx.y, rank, split, smem, acc);
+    tile_product<WG>(TapMajorA<WG>{}, load_a, packed, bands, (wx + 7) / 8,
+                     (p2 + 7) / 8, blockIdx.y, rank, split, smem, acc);
 
     const int n0 = blockIdx.y * kBN;
-    epilogue(smem, acc, split, false, [&](int r, int c, float v) {
+    epilogue<WG>(smem, acc, split, false, [&](int r, int c, float v) {
         if (s0 + r < n_streams && n0 + c < p2)
             yt[(frame * p2 + n0 + c) * n_streams + s0 + r] = v;
     });
 }
 
-bool k2_smem_allowed[64];      // devices that allowed the ring's memory
+// Devices that allowed each block shape's ring memory (short, tall).
+bool k2_smem_allowed[2][64];
+
+template <int WG, class... Args>
+int launch_k2(long long n_frames, int n_streams, int p2, int split,
+              void* stream, Args... args)
+{
+    constexpr int kBM = Tile<WG>::kBM;
+    return (int)launch<WG>(fused_resample_tmajor_kernel<WG>,
+                           k2_smem_allowed[WG == kTallWarpgroups],
+                           n_frames * ((n_streams + kBM - 1) / kBM), p2,
+                           split, stream, args...);
+}
 
 }  // namespace
 
@@ -112,9 +128,13 @@ extern "C" int fused_resample_tmajor_launch(const float* xt, long long ld,
             || wx <= 0 || p2 <= 0)
         return (int)cudaErrorInvalidValue;
     const int vec = ((uintptr_t)xt % 16 == 0 && ld % 4 == 0) ? 1 : 0;
-    const long long n_sb = (n_streams + kBM - 1) / kBM;
-    return (int)launch(fused_resample_tmajor_kernel, k2_smem_allowed,
-                       n_frames * n_sb, p2, split, stream, xt, ld,
-                       (const float4*)packed, (const int2*)bands, yt,
-                       n_streams, ipx, wx, p2, split, vec);
+    if (split == 1)
+        return launch_k2<kTallWarpgroups>(
+            n_frames, n_streams, p2, split, stream, xt, ld,
+            (const float4*)packed, (const int2*)bands, yt, n_streams, ipx,
+            wx, p2, split, vec);
+    return launch_k2<kShortWarpgroups>(
+        n_frames, n_streams, p2, split, stream, xt, ld,
+        (const float4*)packed, (const int2*)bands, yt, n_streams, ipx, wx,
+        p2, split, vec);
 }

@@ -14,9 +14,10 @@ callers build once with their operator and pass as ``op``.
 
 The TPU module's tile helpers (``frame_tile_for``, ``choose_stream_tile``,
 ``vmem_bytes``) have no counterpart: the CUDA kernel tiles the flattened
-(stream, frame) axis in fixed blocks of 128 rows and 80 columns and masks
-the ragged edges itself, whatever the frame count; its only choice, the
-cluster split of long bands, follows from the operator.
+(stream, frame) axis in blocks of 256 or 128 rows and 80 columns and
+masks the ragged edges itself, whatever the frame count; its choices, the
+cluster split of long bands and with it the block's rows, follow from the
+operator (``banded.tile_rows``).
 """
 
 from __future__ import annotations

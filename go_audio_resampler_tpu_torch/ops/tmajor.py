@@ -15,9 +15,10 @@ K1's tile product and reads R as ``banded.prepare`` lays out R_t = r.T
 
 The TPU module's ``kf`` (frames per grid step), ``choose_tmajor_tile``,
 ``choose_tmajor_kf`` and ``tmajor_vmem_bytes`` only size TPU tiles to its
-scoped VMEM and have no counterpart: the CUDA kernel runs 128 streams of
-one frame times 80 output rows per block and masks the ragged edges
-itself, whatever the frame and stream counts.
+scoped VMEM and have no counterpart: the CUDA kernel runs 256 or 128
+streams of one frame (``banded.tile_rows``) times 80 output rows per
+block and masks the ragged edges itself, whatever the frame and stream
+counts.
 """
 
 from __future__ import annotations

@@ -90,13 +90,14 @@ def test_band_table_of_an_all_zero_block_is_empty():
 def test_split_fills_the_card_at_the_decimation_shape():
     """The decimation operator's long bands are split across clusters of
     8, so its 256-stream step launches more blocks than the card has SMs;
-    the main operator's bands are short enough for one block each."""
+    the main operator's bands are short enough for one tall block each."""
     dec = banded.prepare(_r_t("decimation"))
     main = banded.prepare(_r_t("main"))
     assert (dec.split, main.split) == (8, 1)
+    assert (banded.tile_rows(8), banded.tile_rows(1)) == (128, 256)
     rows = 256 * 2                                    # streams x frames
-    blocks = (-(-rows // banded.TILE_M)) * (-(-512 // banded.TILE_N)) \
-        * dec.split
+    blocks = (-(-rows // banded.tile_rows(dec.split))) \
+        * (-(-512 // banded.TILE_N)) * dec.split
     assert blocks >= 132
     tiles = banded.tile_bands(dec.bands)
     widest = int((tiles[:, 1] - tiles[:, 0]).max())
@@ -190,7 +191,8 @@ def test_python_tile_constants_match_the_kernels():
         return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
 
     assert const("kBN") == banded.TILE_N
-    assert 64 * const("kWarpgroups") == banded.TILE_M
+    assert 64 * const("kTallWarpgroups") == banded.tile_rows(1)
+    assert 64 * const("kShortWarpgroups") == banded.tile_rows(2)
     assert const("kKS") == STAGE_KSTEPS
     assert const("kMaxSplit") == banded.MAX_SPLIT
     assert f"m64n{banded.TILE_N}k8.f32.tf32.tf32" in text
