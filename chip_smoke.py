@@ -29,8 +29,11 @@ is printed):
    ``TimeMajorEngine`` (K2) in 2352-row blocks: the same checks, and the
    output against the stream-major one.
 5. Decimation path: 48 kHz -> 16 kHz HIGH, 256 streams of 10 s, through
-   ``EngineCore.process_device`` (K1) and ``TimeMajorEngine`` (K2):
-   lengths, launch counts, 4 streams against the float64 CPU engine.
+   ``EngineCore.process_device`` (K1) and ``TimeMajorEngine`` (K2), each
+   run cold (from an emptied allocator cache, which grows its pool for
+   the step outputs) and warm (the pool cached), with each step's host
+   time: lengths, launch counts of each run, 4 streams against the
+   float64 CPU engine.
 6. One-shot: 64 streams of 2 s through ``oneshot`` for the general
    (K3), cubic (K3), rational (K1), decimation (K1) and DFT-upsampling
    (K1) topologies: lengths, launch counts, 4 streams against the port's
@@ -182,10 +185,10 @@ def decim_operator():
 def banded_cost(rt, op, rows: int, data_elems: int) -> dict:
     """The work and bounds of ``rows`` windows times R_t [wx, p2]: flops
     on R's non-zeros (2*nnz*rows) and on the kernels' band-limited walk
-    (every 64-column tile over its band's k-steps, one pass of three), the
-    bytes the function must move (data and R read once, y written once),
-    and its bounds on this card as float32 FMAs and as three TF32
-    tensor-core passes."""
+    (every 80-column tile over its band's k-steps, one pass of three), the
+    bytes the function must move (the ``data_elems`` samples its frames
+    span and R read once, y written once), and its bounds on this card as
+    float32 FMAs and as three TF32 tensor-core passes."""
     import torch
     from go_audio_resampler_tpu_torch.ops import banded
     wx, p2 = rt.shape
@@ -341,7 +344,8 @@ def kernel_phase(gen) -> dict:
             {"library_conv1d_ms": lambda: F.conv1d(lib_in, weight,
                                                    stride=ip),
              "library_matmul_ms": lambda: torch.matmul(frames, r_t)},
-            banded_cost(r_t, op_, x.shape[0] * nf, x.numel()))
+            banded_cost(r_t, op_, x.shape[0] * nf,
+                        x.shape[0] * ((nf - 1) * ip + w)))
     main = shapes["main"]
     return {"name": "fused_resample", "route": "cuda",
             "source": "go_audio_resampler_tpu_torch/ops/csrc/"
@@ -464,7 +468,7 @@ def k2_phase(gen) -> dict:
             {"library_conv1d_ms": lambda: F.conv1d(lib_in, weight,
                                                    stride=ip),
              "library_matmul_ms": lambda: torch.matmul(r, frames_t)},
-            banded_cost(r_t, op_, s * nf, xt.numel()))
+            banded_cost(r_t, op_, s * nf, s * ((nf - 1) * ip + w)))
     main = shapes["main"]
     return {"name": "fused_resample_tmajor", "route": "cuda",
             "source": "go_audio_resampler_tpu_torch/ops/csrc/"
@@ -724,6 +728,45 @@ def tmajor_path(main: dict, card: str) -> int:
     return launches
 
 
+def timed_run(eng, data, chunks) -> tuple[list, dict]:
+    """One run of a streaming engine over ``chunks`` (``data(a, b)`` is
+    one), then its flush: the outputs, and the run's wall time (s), the
+    host time of each ``process_device`` call (ms), the device span
+    between events recorded before the first call and after the flush
+    (ms), and the segments (``cudaMalloc`` calls) PyTorch's caching
+    allocator added during the run."""
+    import torch
+    segments = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    steps, outs = [], []
+    t0 = time.perf_counter()
+    start.record()
+    for a, b in chunks:
+        t = time.perf_counter()
+        outs.append(eng.process_device(data(a, b)))
+        steps.append(time.perf_counter() - t)
+    outs.append(eng.flush_device())
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return outs, {
+        "wall": wall, "steps_ms": np.array(steps) * 1e3,
+        "device_ms": start.elapsed_time(end),
+        "segments": torch.cuda.memory_stats().get("segment.all.allocated", 0)
+        - segments}
+
+
+def run_stats(st: dict) -> str:
+    """:func:`timed_run`'s record of one run, as printed."""
+    steps = st["steps_ms"]
+    slow = steps[steps > 0.5]
+    return (f"host time per step: median {np.median(steps):.5f} ms, max "
+            f"{steps.max():.5f} ms, {slow.size} steps over 0.5 ms "
+            f"({slow.sum():.3f} ms in all); device span {st['device_ms']:.3f}"
+            f" ms; {st['segments']} new allocator segments")
+
+
 def decim_path(gen, card: str) -> tuple[int, int]:
     """48k -> 16k HIGH, 256 streams, through ``EngineCore`` (K1) and
     ``TimeMajorEngine`` (K2); returns (K1, K2) launches."""
@@ -745,27 +788,39 @@ def decim_path(gen, card: str) -> tuple[int, int]:
     chunks = [(a, min(n, a + block)) for a in range(0, n, block)]
     expected = expected_launches(plan, n, len(chunks), mult,
                                  eng._band.p2, block, eng._drop_override)
-    counts, walls, ys = [], [], []
-    for e, data, dim in ((eng, lambda a, b: x[:, a:b], 1),
-                         (tm, lambda a, b: xt[a:b], 0)):
-        # Set-up, as on the main path: reserve the outputs' memory.
-        torch.empty((DECIM_STREAMS, canonical + block), device="cuda")
-        torch.cuda.synchronize()
-        reset_launches()
-        t0 = time.perf_counter()
-        outs = [e.process_device(data(a, b)) for a, b in chunks]
-        outs.append(e.flush_device())
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        counts.append(launch_counts())
+    counts, ys = [], []
+    for label, e, data, dim in (
+            ("EngineCore (K1)", eng, lambda a, b: x[:, a:b], 1),
+            ("TimeMajorEngine (K2)", tm, lambda a, b: xt[a:b], 0)):
+        # Each step's output is 1 MiB, which PyTorch's allocator takes
+        # from its pool of small blocks, two to a new 2 MiB segment: the
+        # cold run, from an emptied cache, grows that pool (79
+        # cudaMalloc calls); the warm run, from the reset engine with the
+        # cold run's outputs freed, finds the blocks cached, as a
+        # long-running process does.
+        outs = None
+        torch.cuda.empty_cache()
+        for run in ("cold", "warm"):
+            outs = None
+            e.reset()
+            torch.cuda.synchronize()
+            reset_launches()
+            outs, st = timed_run(e, data, chunks)
+            counts.append(launch_counts())
+            print(f"  decimation path, {label}, {run} run: {DECIM_STREAMS} "
+                  f"streams x {n} samples in {st['wall']:.4f} s = "
+                  f"{DECIM_STREAMS * n / st['wall'] / 1e6:.1f} Msamples/s "
+                  f"in, {counts[-1][dim == 0]} launches, {len(chunks)} "
+                  f"chunks on {card}")
+            print(f"  decimation path, {label}, {run} run: {run_stats(st)}")
         ys.append(torch.cat(outs, dim=dim))
     y, yt = ys
     require(tuple(y.shape) == (DECIM_STREAMS, canonical)
             and tuple(yt.shape) == (canonical, DECIM_STREAMS),
             f"decimation outputs {tuple(y.shape)}, {tuple(yt.shape)}, "
             f"canonical {canonical}")
-    require(counts == [(expected, 0, 0), (0, expected, 0)],
-            f"decimation launches {counts}, expected {expected} each")
+    require(counts == [(expected, 0, 0)] * 2 + [(0, expected, 0)] * 2,
+            f"decimation launches {counts}, expected {expected} a run")
     ref = EngineCore(plan, batch=4, block=2048, dtype=torch.float64,
                      device="cpu")
     x4 = x[:4].cpu().double().numpy()
@@ -773,19 +828,13 @@ def decim_path(gen, card: str) -> tuple[int, int]:
     err = float(np.abs(y[:4].cpu().double().numpy() - want).max())
     err_t = float(np.abs(yt[:, :4].t().cpu().double().numpy() - want).max())
     vs_stream = (yt.t() - y).abs().max().item()
-    for name, wall, k in (("EngineCore (K1)", walls[0], expected),
-                          ("TimeMajorEngine (K2)", walls[1], expected)):
-        print(f"  decimation path, {name}: {DECIM_STREAMS} streams x {n} "
-              f"samples in {wall:.4f} s = "
-              f"{DECIM_STREAMS * n / wall / 1e6:.1f} Msamples/s in, {k} "
-              f"launches, {len(chunks)} chunks on {card}")
     print(f"  decimation path: length {canonical} == canonical; max |cuda f32 "
           f"- cpu f64| over 4 streams = {err:.3g} (stream-major), "
           f"{err_t:.3g} (time-major); max |time-major - stream-major| = "
           f"{vs_stream:.3g}")
     require(max(err, err_t, vs_stream) <= ENGINE_TOL,
             f"decimation errors {err}, {err_t}, {vs_stream}")
-    return counts[0][0], counts[1][1]
+    return counts[1][0], counts[3][1]
 
 
 def oneshot_phase(gen, card: str) -> tuple[int, int]:
@@ -864,14 +913,14 @@ def oneshot_phase(gen, card: str) -> tuple[int, int]:
         kname = "general_resample_kernel" if want_k3 else \
             "fused_resample_kernel"
         # torch.profiler now and then returns a trace without the card's
-        # kernels; the launch counts above already show that the kernel
-        # ran, so a trace is taken again (up to three times) and its time
-        # is otherwise reported as not measured.
-        for _ in range(3):
+        # kernels: such a trace is taken again, up to three times in all.
+        for traces in range(1, 4):
             kernels = device_kernels(apply, 5)
             kernel_ms = sum(ms for key, ms, _ in kernels if kname in key)
             if kernel_ms > 0:
                 break
+        require(kernel_ms > 0, f"{name}: no {kname} in {traces} "
+                "torch.profiler traces")
         busy_ms = sum(ms for _, ms, _ in kernels)
         mbytes = sum(a.nbytes for a in host) / 1e6
         print(f"  one-shot {name}: [{ONESHOT_STREAMS}, {n}] -> "
@@ -880,11 +929,10 @@ def oneshot_phase(gen, card: str) -> tuple[int, int]:
               f"design {t1 - t0:.3f} s ({mbytes:.1f} MB of float64 "
               f"operators), upload {t2 - t1:.4f} s, entry point "
               f"{wall:.4f} s on {card}")
-        device = (f"{kernel_ms:.5f} ms" if kernel_ms > 0 else
-                  "not measured (not in three torch.profiler traces)")
-        print(f"  one-shot {name}: device {kname} {device}, all kernels "
-              f"{busy_ms:.5f} ms (torch.profiler); _oneshot_apply span "
-              f"{span_ms:.5f} ms (CUDA events)")
+        print(f"  one-shot {name}: device {kname} {kernel_ms:.5f} ms, all "
+              f"kernels {busy_ms:.5f} ms (torch.profiler, trace {traces} of "
+              f"at most 3); _oneshot_apply span {span_ms:.5f} ms (CUDA "
+              "events)")
         for key, ms, count in kernels:
             print(f"  one-shot {name}: {ms:.5f} ms, {count:g} per call: "
                   f"{key[:80]}")

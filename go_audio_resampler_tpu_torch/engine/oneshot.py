@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..filterdesign.params import PHASE_FRAC_BITS
-from ..ops import banded, fused, general
+from ..ops import banded, convolve, fused, general
 from .counts import CubicSim
 from .plan import EnginePlan
 from .stages import prestage_apply
@@ -341,11 +341,11 @@ def _matrix_t(r: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def _banded_aux(r: np.ndarray, ipx: int, dtype: torch.dtype, device):
-    """(R_t, Ipx) of a periodic banded operator on the device, and on the
-    card R_t as K1 reads it (``banded.prepare``): (R_t, Ipx, op)."""
+    """(R_t, Ipx, op) of a periodic banded operator: R_t on the device
+    and, on the card, R_t as K1 reads it (``banded.prepare``; None on the
+    CPU)."""
     r_t = _matrix_t(r, dtype, device)
-    op = banded.prepare_on_card(r_t)
-    return (r_t, ipx) if op is None else (r_t, ipx, op)
+    return r_t, ipx, banded.prepare_on_card(r_t)
 
 
 def _banded_tiles_apply(u: torch.Tensor, starts_d: torch.Tensor,
@@ -386,17 +386,16 @@ def _banded_apply(x: torch.Tensor, count: int, aux) -> torch.Tensor:
     package's ``_poly_apply_rational_fused`` and ``_decim_apply_matmul``.
 
     Frames of ``x`` of width Wx advance Ipx per P outputs; ``aux`` is
-    (R_t [Wx, P], Ipx), with the prepared operator on the card, from
-    :func:`_banded_aux`.  ``x`` is zero-extended on the right to cover the
-    last frame; no intermediate stream or frames are materialized.
+    (R_t [Wx, P], Ipx, op) from :func:`_banded_aux`.  ``x`` is
+    zero-extended on the right to cover the last frame; no intermediate
+    stream or frames are materialized.
     """
-    r_t, ipx = aux[:2]
+    r_t, ipx, op = aux
     wx, p2 = r_t.shape
     n_frames = -(-count // p2)
     x = _pad_right(x, (n_frames - 1) * ipx + wx)
     y = fused.fused_resample(x, r_t, ipx=ipx, wx=wx, p2=p2,
-                             n_frames=n_frames,
-                             op=aux[2] if len(aux) > 2 else None)
+                             n_frames=n_frames, op=op)
     return y[:, :count]
 
 
@@ -419,12 +418,13 @@ def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device):
 
     - general and cubic: (starts, M), the banded tile matrices (tens of
       MB per (plan, length));
-    - rational: (R_t, Ipx), the superframed per-period operator;
-    - decimate: (R_t, Ipx), the per-period matrix at the kernel's period
-      on the card and the plain version's on the CPU;
-    - on the card, rational and decimate also carry R_t as K1 reads it
-      (``banded.prepare``);
-    - dft_up: (coeffs,), the prestage's polyphase rows (none at factor 1).
+    - rational: (R_t, Ipx, op), the superframed per-period operator;
+    - decimate: (R_t, Ipx, op), the per-period matrix at the kernel's
+      period on the card and the plain version's on the CPU;
+    - dft_up: (coeffs, band), the prestage's polyphase rows and, on the
+      card, the banded lowering's operator for the padded input
+      (``convolve.band_operator``; None on the CPU); none at factor 1;
+    - ``op`` is R_t as K1 reads it (``banded.prepare``), None on the CPU.
     """
     device = torch.device(device)
     canonical = plan.lengths.canonical(n)
@@ -435,8 +435,13 @@ def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device):
     if plan.kind == 'dft_up':
         if plan.factor == 1:
             return ()
-        return (torch.as_tensor(plan.pre_coeffs, dtype=dtype,
-                                device=device),)
+        coeffs = torch.as_tensor(plan.pre_coeffs, dtype=dtype,
+                                 device=device)
+        if device.type != 'cuda':
+            return coeffs, None
+        # The prestage reads xext = (0^(T1-1) x 0^z), as _oneshot_apply pads.
+        n_ext = n + plan.pre_taps - 1 + plan.lengths.flush_pad(n)
+        return coeffs, convolve.band_operator(coeffs, n_ext, 1, dtype, device)
     if plan.kind == 'decimate':
         if plan.decim_taps >= DECIM_FFT_MIN_TAPS:
             raise NotImplementedError(_FFT_DECIM)
@@ -477,7 +482,7 @@ def _oneshot_apply(plan: EnginePlan, x: torch.Tensor, aux) -> torch.Tensor:
         if plan.factor == 1:
             return x  # unity ratio: pass-through (dft_stage.go:57-59)
         xext = _pad(x, plan.pre_taps - 1, z)
-        u = prestage_apply(aux[0], xext, plan.factor)
+        u = prestage_apply(aux[0], xext, plan.factor, band=aux[1])
         drop = lm.drop_prefix()
         return u[:, drop:drop + canonical]
 

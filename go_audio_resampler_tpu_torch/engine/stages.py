@@ -10,20 +10,22 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.convolve import conv1d_poly_interleaved
+from ..ops.convolve import ConvBand, conv1d_poly_interleaved
 from ..ops.frames import gather_windows, gather_windows_at
 
 __all__ = ["gather_windows", "gather_windows_at", "prestage_apply"]
 
 
 def prestage_apply(coeffs: torch.Tensor, xext: torch.Tensor, factor: int,
-                   precision: str = 'auto') -> torch.Tensor:
+                   precision: str = 'auto',
+                   band: ConvBand | None = None) -> torch.Tensor:
     """u[s, i*F + p] = dot(xext[s, i:i+T1], coeffs[p]) for all valid i.
 
     ``coeffs`` [F, T1] are tap-reversed (design time), so this correlation
     is the reference's polyphase convolution.  On the card it is the K1
-    kernel through the banded lowering of ``ops/convolve.py``.  Only the
+    kernel through the banded lowering of ``ops/convolve.py``, reading
+    ``band`` (``band_operator`` for xext's length) where given.  Only the
     exact tier runs in this port: ``precision`` is 'auto' or 'highest'.
     """
     del factor  # implied by coeffs.shape[0]
-    return conv1d_poly_interleaved(xext, coeffs, precision)
+    return conv1d_poly_interleaved(xext, coeffs, precision, band=band)

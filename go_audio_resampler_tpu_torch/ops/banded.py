@@ -85,27 +85,26 @@ def band_table(r_t: torch.Tensor) -> torch.Tensor:
     n_blocks = -(-p2 // BAND_N)
     nz = torch.zeros((wx, n_blocks * BAND_N), dtype=torch.bool)
     nz[:, :p2] = (r_t != 0).cpu()
-    nz = nz.view(wx, n_blocks, BAND_N).any(dim=2)         # [wx, blocks]
-    table = torch.zeros((n_blocks, 2), dtype=torch.int32)
-    for j in range(n_blocks):
-        taps = torch.nonzero(nz[:, j]).flatten()
-        if taps.numel():
-            table[j, 0] = int(taps[0]) // K_STEP
-            table[j, 1] = int(taps[-1]) // K_STEP + 1
-    return table
+    nz = nz.view(wx, n_blocks, BAND_N).any(dim=2).int()   # [wx, blocks]
+    first = nz.argmax(dim=0)                   # first non-zero tap
+    last = wx - 1 - nz.flip(0).argmax(dim=0)   # last non-zero tap
+    table = torch.stack([first // K_STEP, last // K_STEP + 1], dim=1)
+    return torch.where(nz.any(dim=0)[:, None], table, 0).int()
 
 
 def tile_bands(bands: torch.Tensor) -> torch.Tensor:
     """[ceil(p2/TILE_N), 2]: the k-steps each block of TILE_N columns
     walks, the union of its n8 blocks' bands (``[0, 0)`` if all empty)."""
     per = TILE_N // BAND_N
-    out = torch.zeros((-(-bands.shape[0] // per), 2), dtype=torch.int32)
-    for j in range(out.shape[0]):
-        b = bands[j * per:(j + 1) * per]
-        b = b[b[:, 1] > b[:, 0]]
-        if b.numel():
-            out[j, 0], out[j, 1] = b[:, 0].min(), b[:, 1].max()
-    return out
+    n_tiles = -(-bands.shape[0] // per)
+    b = torch.zeros((n_tiles * per, 2), dtype=torch.int32)
+    b[:bands.shape[0]] = bands.cpu()
+    b = b.view(n_tiles, per, 2)
+    live = b[..., 1] > b[..., 0]
+    lo = torch.where(live, b[..., 0], torch.iinfo(torch.int32).max)
+    hi = torch.where(live, b[..., 1], 0)
+    out = torch.stack([lo.min(dim=1).values, hi.max(dim=1).values], dim=1)
+    return torch.where(live.any(dim=1)[:, None], out, 0).int()
 
 
 def choose_split(bands: torch.Tensor) -> int:
@@ -169,10 +168,11 @@ def prepare_on_card(r_t: torch.Tensor) -> BandedOperator | None:
 
 def resolve(op: BandedOperator | None, r_t: torch.Tensor,
             who: str) -> BandedOperator:
-    """``op``, or ``prepare(r_t)`` where it is None, checked against R_t
-    [wx, p2] and its device."""
+    """``op`` checked against R_t [wx, p2] and its device.  A kernel call
+    takes R prepared with its operator, never per launch: None raises."""
     if op is None:
-        return prepare(r_t)
+        raise ValueError(f"{who}: a CUDA call takes op=banded.prepare(r_t), "
+                         "prepared once with the operator")
     if ((op.wx, op.p2) != tuple(r_t.shape) or op.packed.device != r_t.device
             or op.bands.device != r_t.device):
         raise ValueError(f"{who}: op was prepared for R_t ({op.wx}, {op.p2}) "

@@ -23,6 +23,8 @@ matmul tier runs in this port: ``precision`` is 'auto' or 'highest'.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import banded, fused
@@ -61,6 +63,31 @@ def band_matrix(kernels: torch.Tensor, p: int, stride: int,
     return r, w
 
 
+class ConvBand(NamedTuple):
+    """The banded lowering's operator for inputs of one length: R_t
+    [W, p*F] (``band_matrix``), its period p, and on the card R_t as K1
+    reads it (``banded.prepare``; None elsewhere)."""
+    r_t: torch.Tensor
+    p: int
+    op: banded.BandedOperator | None
+
+
+def _band_period(n: int, t: int, stride: int) -> int:
+    """Outputs per frame of the banded lowering of an n-sample input."""
+    return min(BAND_PERIOD, max((n - t) // stride + 1, 1))
+
+
+def band_operator(kernels: torch.Tensor, n: int, stride: int,
+                  dtype: torch.dtype, device) -> ConvBand:
+    """The banded lowering's operator for n-sample inputs, built and
+    prepared once; callers that apply one convolution to many inputs of
+    a length (the one-shot DFT prestage) build it ahead and pass it as
+    ``band``."""
+    p = _band_period(n, kernels.shape[1], stride)
+    r_t, _ = band_matrix(kernels, p, stride, dtype, device)
+    return ConvBand(r_t, p, banded.prepare_on_card(r_t))
+
+
 def _conv_frames(x: torch.Tensor, kernels: torch.Tensor,
                  stride: int) -> torch.Tensor:
     """Frames lowering: [S, n] -> [S, F, n_out]."""
@@ -70,27 +97,33 @@ def _conv_frames(x: torch.Tensor, kernels: torch.Tensor,
 
 
 def _conv_banded(x: torch.Tensor, kernels: torch.Tensor, stride: int,
-                 interleaved: bool = False) -> torch.Tensor:
+                 interleaved: bool = False,
+                 band: ConvBand | None = None) -> torch.Tensor:
     """Banded lowering (see the module docstring): one K1 call.
 
     With ``interleaved`` the result is the flat [S, n_out*F] stream
     y[s, i*F + ff] (the polyphase-upsampling order), the band's natural
-    output layout.
+    output layout.  ``band`` is :func:`band_operator` for this input's
+    length; without it the call builds it.
     """
     s, n = x.shape
     f, t = kernels.shape
     n_out = (n - t) // stride + 1
-    p = min(BAND_PERIOD, max(n_out, 1))
+    if band is None:
+        band = band_operator(kernels, n, stride, x.dtype, x.device)
+    p = band.p
+    if p != _band_period(n, t, stride):
+        raise ValueError(f"_conv_banded: band was built for period {p}, "
+                         f"the {n}-sample input takes "
+                         f"{_band_period(n, t, stride)}")
     nf = -(-n_out // p)
     ipx, p2 = p * stride, p * f
-    r_t, w = band_matrix(kernels, p, stride, x.dtype, x.device)
+    w = band.r_t.shape[0]
     need = (nf - 1) * ipx + w
     if n < need:
         x = torch.cat([x, x.new_zeros((s, need - n))], dim=1)
-    # The band matrix depends on the input's length (p), so it is built,
-    # and prepared for the kernel, per call.
-    y3 = fused.fused_resample(x.contiguous(), r_t, ipx=ipx, wx=w, p2=p2,
-                              n_frames=nf, op=banded.prepare_on_card(r_t))
+    y3 = fused.fused_resample(x.contiguous(), band.r_t, ipx=ipx, wx=w,
+                              p2=p2, n_frames=nf, op=band.op)
     # y3: [S, nf*p*F]
     if interleaved:
         # y3[s, k*p*F + ii*F + ff] = filter ff at output k*p + ii: already
@@ -115,15 +148,17 @@ def conv1d_poly(x: torch.Tensor, kernels: torch.Tensor, stride: int = 1,
 
 
 def conv1d_poly_interleaved(x: torch.Tensor, kernels: torch.Tensor,
-                            precision: str = 'auto') -> torch.Tensor:
+                            precision: str = 'auto',
+                            band: ConvBand | None = None) -> torch.Tensor:
     """u[s, i*F + ff] = sum_t x[s, i + t] * kernels[ff, t] (stride 1).
 
     The polyphase-upsampled stream in its natural interleaved order.  The
-    banded lowering emits this layout directly; the frames lowering
-    transposes its [S, F, n_out] output.
+    banded lowering emits this layout directly (on the card, reading
+    ``band`` where given); the frames lowering transposes its
+    [S, F, n_out] output.
     """
     _check_precision(precision)
     if x.device.type == "cuda":
-        return _conv_banded(x, kernels, 1, interleaved=True)
+        return _conv_banded(x, kernels, 1, interleaved=True, band=band)
     out = _conv_frames(x, kernels, 1)                    # [S, F, n_out]
     return out.transpose(1, 2).reshape(x.shape[0], -1)

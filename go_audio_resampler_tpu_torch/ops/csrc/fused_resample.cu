@@ -18,7 +18,7 @@
 // Bounds on this card (H100 SXM: 67 TFLOP/s float32 FMA, 495 TFLOP/s
 // TF32 tensor cores, 3.35 TB/s).  Counting the non-zeros of R, 44.1k->48k
 // HIGH (R_t [343, 160] over Ipx 147, 1024 streams x 16 frames) is 1.03
-// GFLOP and 21.5 MB: 0.0154 ms as float32 FMAs, 0.0064 ms as three TF32
+// GFLOP and 21.1 MB: 0.0154 ms as float32 FMAs, 0.0063 ms as three TF32
 // tensor-core passes, where the bytes bind.  48k->16k HIGH (R_t
 // [2882, 512] over 1536, 256 streams x 2 frames) is 0.707 GFLOP and 11.5
 // MB: 0.0106 ms as FMAs, 0.0043 ms as three TF32 passes, bound by the

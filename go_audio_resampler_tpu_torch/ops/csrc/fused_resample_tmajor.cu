@@ -18,7 +18,7 @@
 //
 // Bounds on this card: the same work as K1 (fused_resample.cu).  At
 // 44.1k->48k HIGH, 1024 streams x 16 frames: 0.0154 ms as float32 FMAs,
-// 0.0064 ms as three TF32 tensor-core passes, bound by its 21.5 MB; at
+// 0.0063 ms as three TF32 tensor-core passes, bound by its 21.1 MB; at
 // 48k->16k HIGH, 256 streams x 2 frames: 0.0106 ms and 0.0043 ms, bound by
 // the operations.
 //

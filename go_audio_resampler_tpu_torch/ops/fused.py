@@ -79,8 +79,9 @@ def fused_resample(data: torch.Tensor, r_t: torch.Tensor, *, ipx: int,
 
     CUDA tensors go to the kernel, which takes contiguous float32 ``data``
     and ``r_t`` on one device and raises on anything else; CPU tensors get
-    :func:`fused_resample_reference`.  ``op`` is ``banded.prepare(r_t)``;
-    without it a CUDA call prepares R itself (a host round trip).
+    :func:`fused_resample_reference`.  ``op`` is ``banded.prepare(r_t)``,
+    built once with the operator; a CUDA call requires it, the plain
+    version does not read it.
     """
     global launches
     _check(data, r_t, ipx, wx, p2, n_frames)

@@ -82,8 +82,8 @@ def fused_resample_tmajor(xt: torch.Tensor, r: torch.Tensor, *, ipx: int,
     CUDA tensors go to the kernel, which takes contiguous float32 ``xt``
     and ``r`` on one device and raises on anything else; CPU tensors get
     :func:`fused_resample_tmajor_reference`.  ``op`` is
-    ``banded.prepare(r.T)``; without it a CUDA call prepares R itself (a
-    host round trip).
+    ``banded.prepare(r.T)``, built once with the operator; a CUDA call
+    requires it, the plain version does not read it.
     """
     global launches
     _check(xt, r, ipx, wx, p2, n_frames)

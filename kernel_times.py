@@ -3,6 +3,7 @@
 decimation path's shapes, for one tree of the repository.
 
     python3 kernel_times.py [--root DIR] [--tag NAME] [--seed N]
+                            [--path-runs N]
 
 Imports ``go_audio_resampler_tpu_torch`` from DIR (by default the
 directory of this file), builds its kernels there and prints one JSON
@@ -19,6 +20,13 @@ frames).  K2 takes the same data transposed.  Each time is a CUDA graph of
 20 launches replayed 10 times (``chip_smoke.graph_ms``), so the host's
 enqueue time is not counted.  Inputs come from ``--seed``; TF32 is off
 for the plain versions.
+
+``--path-runs N`` also drives ``chip_smoke.py``'s decimation path (48 kHz
+-> 16 kHz HIGH, 256 streams x 10.016 s, 3072-sample steps) N times
+through each engine, each time once after ``torch.cuda.empty_cache()``
+("cold": PyTorch's allocator adds segments for the 1 MiB step outputs)
+and once more from the reset engine ("warm": the blocks are cached), and
+records each run as ``chip_smoke.timed_run`` does.
 """
 
 from __future__ import annotations
@@ -30,7 +38,50 @@ import os
 import subprocess
 import sys
 
-from chip_smoke import graph_ms
+from chip_smoke import (DECIM_IN, DECIM_OUT, DECIM_SAMPLES, DECIM_STREAMS,
+                        graph_ms, timed_run)
+
+
+def path_runs(runs: int, gen) -> dict:
+    """Per engine and kind (cold, warm), each run's input Msamples/s, its
+    largest step host time (ms), its steps over 0.5 ms, its device span
+    (ms) and the allocator segments it added (see the module docstring).
+    """
+    import torch
+    from go_audio_resampler_tpu_torch import (EngineCore, Quality,
+                                              TimeMajorEngine, plan_engine)
+    plan = plan_engine(DECIM_IN, DECIM_OUT, Quality.HIGH)
+    n = DECIM_SAMPLES
+    x = 0.5 * torch.randn((DECIM_STREAMS, n), generator=gen, device="cuda")
+    xt = x.t().contiguous()
+    engines = (
+        ("EngineCore", EngineCore(plan, batch=DECIM_STREAMS, block=2048),
+         lambda a, b: x[:, a:b]),
+        ("TimeMajorEngine", TimeMajorEngine(plan, batch=DECIM_STREAMS,
+                                            block=2048),
+         lambda a, b: xt[a:b]))
+    block = engines[0][1].block
+    chunks = [(a, min(n, a + block)) for a in range(0, n, block)]
+    rec = {}
+    for _ in range(runs):
+        for name, eng, data in engines:
+            for kind in ("cold", "warm"):
+                if kind == "cold":
+                    torch.cuda.empty_cache()
+                eng.reset()
+                torch.cuda.synchronize()
+                outs, st = timed_run(eng, data, chunks)
+                del outs
+                steps = st["steps_ms"]
+                r = rec.setdefault(f"{name}_{kind}", {
+                    "rate": [], "max_step_ms": [], "slow_steps": [],
+                    "device_ms": [], "segments": []})
+                r["rate"].append(DECIM_STREAMS * n / st["wall"] / 1e6)
+                r["max_step_ms"].append(float(steps.max()))
+                r["slow_steps"].append(int((steps > 0.5).sum()))
+                r["device_ms"].append(st["device_ms"])
+                r["segments"].append(st["segments"])
+    return rec
 
 
 def main() -> int:
@@ -39,6 +90,9 @@ def main() -> int:
         __file__)), help="repository tree whose port is timed")
     ap.add_argument("--tag", default="", help="name printed with the times")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--path-runs", type=int, default=0,
+                    help="also drive the decimation path this many times "
+                         "through each engine, cold and warm")
     args = ap.parse_args()
 
     import torch
@@ -84,6 +138,8 @@ def main() -> int:
             lambda: fused.fused_resample(x, rt, **kw))
         out[f"k2_{shape}_ms"] = graph_ms(
             lambda: tmajor.fused_resample_tmajor(xt, r, **kw))
+    if args.path_runs:
+        out["decimation_runs"] = path_runs(args.path_runs, gen)
     print(json.dumps(out))
     return 0
 

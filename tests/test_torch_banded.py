@@ -153,7 +153,8 @@ def test_prepare_checks_and_resolve():
     r_t = _r_t("main")
     op = banded.prepare(r_t)
     assert banded.resolve(op, r_t, "k") is op
-    assert banded.resolve(None, r_t, "k").split == op.split
+    with pytest.raises(ValueError, match="op=banded.prepare"):
+        banded.resolve(None, r_t, "k")      # never prepared per launch
     with pytest.raises(ValueError, match="prepared for"):
         banded.resolve(op, r_t[:, :100], "k")
     with pytest.raises(TypeError, match="float32"):

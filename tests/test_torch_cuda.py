@@ -24,7 +24,8 @@ import torch
 from go_audio_resampler_tpu_torch import (EngineCore, Quality,
                                           TimeMajorEngine, oneshot as run_oneshot,
                                           plan_engine)
-from go_audio_resampler_tpu_torch.ops import banded, fused, general, tmajor
+from go_audio_resampler_tpu_torch.ops import (banded, convolve, fused,
+                                              general, tmajor)
 
 # engine/__init__ exports the function oneshot under the module's name.
 oneshot = importlib.import_module("go_audio_resampler_tpu_torch.engine.oneshot")
@@ -67,7 +68,8 @@ def test_kernel_matches_plain_version(cuda, s, nf, rates_q):
         rt, ipx, wx, p2 = _operator(rates_q, superframed, cuda)
         x = _data(s, (nf - 1) * ipx + wx + 3, cuda, s)
         before = fused.launches
-        y = fused.fused_resample(x, rt, ipx=ipx, wx=wx, p2=p2, n_frames=nf)
+        y = fused.fused_resample(x, rt, ipx=ipx, wx=wx, p2=p2, n_frames=nf,
+                                 op=banded.prepare(rt))
         torch.cuda.synchronize()
         assert fused.launches == before + 1
         ref = fused.fused_resample_reference(x, rt, ipx=ipx, wx=wx, p2=p2,
@@ -84,14 +86,15 @@ def test_kernels_take_rows_that_start_off_a_16_byte_boundary(cuda, offset):
     through its 4-byte copies, with the same bits.  K2 likewise where the
     row stride is not a multiple of 4 floats."""
     rt, ipx, wx, p2 = _operator(PLANS[0], False, cuda)
-    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=9)
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=9, op=banded.prepare(rt))
     n = 8 * ipx + wx
     store = _data(1, offset + 6 * n, cuda, offset).reshape(-1)
     x = store[offset:].view(6, n)
     assert x.is_contiguous() and x.data_ptr() % 16
     y = fused.fused_resample(x, rt, **kw)
     assert torch.equal(y, fused.fused_resample(x.clone(), rt, **kw))
-    ref = fused.fused_resample_reference(x, rt, **kw)
+    ref = fused.fused_resample_reference(x, rt, ipx=ipx, wx=wx, p2=p2,
+                                         n_frames=9)
     assert (y - ref).abs().max().item() <= TOL
     xt = _data(n, 4 + offset, cuda, 9)                   # ld % 4 != 0
     yt = tmajor.fused_resample_tmajor(xt, rt.t().contiguous(), **kw)
@@ -104,7 +107,7 @@ def test_kernel_output_bits_do_not_depend_on_the_launch(cuda):
     """One launch over 32 frames equals two launches of 16, bit for bit."""
     rt, ipx, wx, p2 = _operator(PLANS[0], False, cuda)
     x = _data(6, 31 * ipx + wx, cuda, 1)
-    kw = dict(ipx=ipx, wx=wx, p2=p2)
+    kw = dict(ipx=ipx, wx=wx, p2=p2, op=banded.prepare(rt))
     whole = fused.fused_resample(x, rt, n_frames=32, **kw)
     a = fused.fused_resample(x[:, :15 * ipx + wx].contiguous(), rt,
                              n_frames=16, **kw)
@@ -129,6 +132,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fused.fused_resample(x, rt.cpu(), **kw)
     with pytest.raises(ValueError, match="need data.shape"):
         fused.fused_resample(x[:, 1:].contiguous(), rt, **kw)
+    with pytest.raises(ValueError, match="op=banded.prepare"):
+        fused.fused_resample(x, rt, **kw)             # R not prepared
     assert fused.launches == before
 
 
@@ -174,8 +179,9 @@ def test_k2_matches_plain_version_and_k1(cuda, s, nf, rates_q):
     r = rt.t().contiguous()
     xt = _data((nf - 1) * ipx + wx + 5, s, cuda, s)
     before = tmajor.launches
+    op = banded.prepare(rt)
     y = tmajor.fused_resample_tmajor(xt, r, ipx=ipx, wx=wx, p2=p2,
-                                     n_frames=nf)
+                                     n_frames=nf, op=op)
     torch.cuda.synchronize()
     assert tmajor.launches == before + 1
     ref = tmajor.fused_resample_tmajor_reference(xt, r, ipx=ipx, wx=wx,
@@ -184,7 +190,7 @@ def test_k2_matches_plain_version_and_k1(cuda, s, nf, rates_q):
     assert (y - ref).abs().max().item() <= TOL
     # The same fmaf chain as K1: bit-equal on the transposed data.
     y1 = fused.fused_resample(xt.t().contiguous(), rt, ipx=ipx, wx=wx, p2=p2,
-                              n_frames=nf)
+                              n_frames=nf, op=op)
     assert torch.equal(y, y1.t())
 
 
@@ -221,7 +227,7 @@ def test_k2_k3_output_bits_do_not_depend_on_the_launch(cuda):
     rt, ipx, wx, p2 = _operator(PLANS[0], False, cuda)
     r = rt.t().contiguous()
     xt = _data(31 * ipx + wx, 6, cuda, 2)
-    kw = dict(ipx=ipx, wx=wx, p2=p2)
+    kw = dict(ipx=ipx, wx=wx, p2=p2, op=banded.prepare(rt))
     whole = tmajor.fused_resample_tmajor(xt, r, n_frames=32, **kw)
     a = tmajor.fused_resample_tmajor(xt[:15 * ipx + wx].contiguous(), r,
                                      n_frames=16, **kw)
@@ -254,6 +260,8 @@ def test_k2_k3_reject_what_they_do_not_take(cuda):
             torch.zeros((xt.shape[0], 8), device=cuda)[:, ::2], r, **kw)
     with pytest.raises(ValueError, match="one CUDA device"):
         tmajor.fused_resample_tmajor(xt, r.cpu(), **kw)
+    with pytest.raises(ValueError, match="op=banded.prepare"):
+        tmajor.fused_resample_tmajor(xt, r, **kw)     # R not prepared
     with pytest.raises(TypeError, match="float32"):
         general.general_resample(x.double(), m.double(), starts, **gk)
     with pytest.raises(ValueError, match="contiguous"):
@@ -388,3 +396,26 @@ def test_oneshot_matches_cpu_float64(cuda, rates_q, wrapper):
     assert np.abs(got.cpu().numpy() - want).max() <= TOL
     with pytest.raises(ValueError, match="float32"):
         run_oneshot(plan, x, dtype=np.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rates_q", [(44100, 48000, Quality.HIGH),
+                                     (48000, 16000, Quality.HIGH),
+                                     (48000, 96000, Quality.HIGH)])
+def test_oneshot_apply_prepares_nothing(cuda, monkeypatch, rates_q):
+    """``_oneshot_aux`` prepares every operator K1 reads (the dft_up
+    prestage's band included): the apply gives the same bits with the
+    preparation disabled."""
+    plan = plan_engine(*rates_q)
+    x = _data(3, 5000, cuda, 23)
+    aux = oneshot._oneshot_aux(plan, 5000, torch.float32, cuda)
+    want = oneshot._oneshot_apply(plan, x, aux)
+
+    def no_preparation(*a, **kw):
+        raise AssertionError("operator prepared in the apply")
+
+    monkeypatch.setattr(banded, "prepare", no_preparation)
+    monkeypatch.setattr(convolve, "band_matrix", no_preparation)
+    before = fused.launches
+    assert torch.equal(oneshot._oneshot_apply(plan, x, aux), want)
+    assert fused.launches == before + 1

@@ -170,8 +170,9 @@ def test_aux_holds_every_operator(monkeypatch, name):
     x = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 2000)))
     want = gart.oneshot(tp, x, device="cpu")
     aux = toneshot._oneshot_aux(tp, 2000, torch.float64, "cpu")
-    assert all(isinstance(a, int) or (isinstance(a, torch.Tensor)
-                                      and a.device.type == "cpu")
+    # On the CPU the kernels' prepared operators are None.
+    assert all(a is None or isinstance(a, int)
+               or (isinstance(a, torch.Tensor) and a.device.type == "cpu")
                for a in aux)
 
     def no_host_work(*a, **kw):
@@ -299,6 +300,29 @@ def test_conv1d_poly_matches_jax(f, t, stride, n, dtype):
         assert yt.dtype == xt.dtype and tuple(yt.shape) == yj.shape
         np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=0,
                                    atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("f,t,n", [(2, 17, 400), (1, 33, 90)])
+def test_conv_banded_reads_a_band_built_ahead(monkeypatch, f, t, n):
+    """``band_operator`` builds the banded lowering's operator once for an
+    input length; ``_conv_banded`` given it builds nothing and gives the
+    same result, and refuses a band of another period."""
+    rng = np.random.default_rng(t)
+    x = torch.from_numpy(rng.normal(size=(2, n)).astype(np.float32))
+    k = torch.from_numpy((rng.normal(size=(f, t)) / t).astype(np.float32))
+    want = tconvolve._conv_banded(x, k, 1, interleaved=True)
+    band = tconvolve.band_operator(k, n, 1, torch.float32, "cpu")
+    assert band.p == min(tconvolve.BAND_PERIOD, n - t + 1) and band.op is None
+
+    def no_build(*a, **kw):
+        raise AssertionError("band built per call")
+
+    monkeypatch.setattr(tconvolve, "band_matrix", no_build)
+    got = tconvolve._conv_banded(x, k, 1, interleaved=True, band=band)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="period"):
+        tconvolve._conv_banded(x[:, :t + 4], k, 1, interleaved=True,
+                               band=band)
 
 
 @pytest.mark.parametrize("precision,exc", [("high", NotImplementedError),
