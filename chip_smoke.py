@@ -19,7 +19,10 @@ is printed):
    are any), and its bounds on this card.  K1 and K2 are checked and timed
    at the main path's shape and at the decimation path's, with their
    float32-FMA and 3xTF32 tensor-core bounds and their work counted on R's
-   non-zeros and on the kernels' band-limited walk.
+   non-zeros and on the kernels' band-limited walk.  K3 is checked and
+   timed at the one-shot general and cubic shapes, with its 3xTF32 bound
+   on M's non-zeros beside the dense-M one, its bands' share of the dense
+   product and ``torch.bmm`` over the gathered frames.
 3. Main path: 44.1 kHz -> 48 kHz HIGH, ``EngineCore`` with 1024 streams of
    10 s each, fed through ``process_device`` one 2352-sample block at a
    time, then ``flush_device``.  Checks the exact output length, the
@@ -357,13 +360,6 @@ def kernel_phase(gen) -> dict:
             "shapes": shapes}
 
 
-def bound(flops: int, bytes_: int) -> tuple[float, str]:
-    """The least time (ms) of the work on this card, and what bounds it."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, bytes_ / PEAK_HBM_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
-
-
 def k2_phase(gen) -> dict:
     """K2 against its plain version (and K1), then timed at the
     time-major path's and the decimation path's shapes."""
@@ -480,59 +476,139 @@ def k2_phase(gen) -> dict:
             "shapes": shapes}
 
 
-def general_case(count_in: int = ONESHOT_SECONDS * RATE_IN):
-    """(plan, starts, M [n_tiles, w, tile] float32 on the card, count) of
-    the one-shot general path, 44.1 kHz -> 48.001 kHz HIGH."""
+#: The one-shot K3 shapes: 64 streams of 2 s at 44.1 kHz.
+K3_SHAPES = {"general": (RATE_IN, 48001, "HIGH"),
+             "cubic": (RATE_IN, RATE_OUT, "QUICK")}
+
+
+def k3_operands(shape: str) -> tuple:
+    """(starts, M [n_tiles, w, tile] float32, bands, warpgroups) of a
+    one-shot K3 shape (``K3_SHAPES``) on the card, as ``oneshot`` uploads
+    them: 44.1 kHz -> 48.001 kHz HIGH (general) or 44.1 kHz -> 48 kHz
+    QUICK (cubic).  ``bands`` and ``warpgroups`` are None where the port's
+    ``_upload`` gives no band table and block width."""
     import importlib
     import torch
     from go_audio_resampler_tpu_torch import Quality, plan_engine
     osm = importlib.import_module("go_audio_resampler_tpu_torch.engine.oneshot")
-    plan = plan_engine(RATE_IN, 48001, Quality.HIGH)
-    count = plan.lengths.canonical(count_in)
-    starts, m = osm._upload(osm._general_matrices(plan, count),
-                            torch.float32, "cuda")
-    return plan, starts, m, count
+    rate_in, rate_out, q = K3_SHAPES[shape]
+    plan = plan_engine(rate_in, rate_out, Quality[q])
+    count = plan.lengths.canonical(ONESHOT_SECONDS * rate_in)
+    build = (osm._cubic_matrices if plan.kind == "cubic"
+             else osm._general_matrices)
+    up = osm._upload(build(plan, count), torch.float32, "cuda")
+    return tuple(up) + (None,) * (4 - len(up))
+
+
+def k3_cost(x, m, starts, bands, warpgroups: int) -> dict:
+    """The work and bounds of K3 on x [S, n] and M [n_tiles, w, tile]:
+    flops on M's non-zeros (2*S*nnz, three TF32 passes on the tensor
+    cores), the bytes the function must move (M's non-zeros, or all of M
+    for the dense figure, the samples of x its windows span, starts, and
+    y once), the bounds on this card, and the shares of the dense product
+    that the kernel's bands hold (each 8 columns' and each warpgroup's 64
+    columns' k-steps)."""
+    import torch
+    from go_audio_resampler_tpu_torch.ops import general
+    s, n = x.shape
+    n_tiles, w_band, tile = m.shape
+    nnz = int(torch.count_nonzero(m).item())
+    span, reach = 0, 0                      # union of the windows in [0, n)
+    for a in sorted(starts.cpu().tolist()):
+        lo, hi = max(a, reach, 0), min(a + w_band, n)
+        span += max(0, hi - lo)
+        reach = max(reach, hi)
+    flops = 2 * s * nnz
+    signal = 4 * (s * span + s * n_tiles * tile) + starts.numel() \
+        * starts.element_size()
+    bytes_nnz, bytes_dense = 4 * nnz + signal, 4 * m.numel() + signal
+    t_tc = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    t_nnz = bytes_nnz / PEAK_HBM_BYTES * 1e3
+    t_dense = bytes_dense / PEAK_HBM_BYTES * 1e3
+    ks = -(-w_band // 8)
+    b = (bands if bands is not None else general.band_table(m)).cpu()
+    b = b.clamp(max=ks).view(n_tiles, -1, 2)
+    per8 = int((b[..., 1] - b[..., 0]).clamp(min=0).sum()) * 64
+    per = general.WARPGROUP_P // general.BAND_N
+    groups = -(-b.shape[1] // per)
+    g = torch.zeros((n_tiles, groups * per, 2), dtype=torch.int64)
+    g[:, :b.shape[1]] = b
+    g = g.view(n_tiles, groups, per, 2)
+    live = g[..., 1] > g[..., 0]
+    lo = torch.where(live, g[..., 0], 1 << 30).min(dim=2).values
+    hi = torch.where(live, g[..., 1], 0).max(dim=2).values
+    walk = int(torch.where(hi > 0, hi - lo, 0).sum()) * 8 * general.WARPGROUP_P
+    dense = n_tiles * ks * 8 * tile
+    return {"flops_nnz": flops, "nnz_share": nnz / m.numel(),
+            "band_share_8_columns": per8 / dense,
+            "band_share_warpgroup": walk / dense,
+            "own_share_of_pairs": general.own_share(b),
+            "m_bytes_in_band": 4 * per8, "x_span": span,
+            "bytes": bytes_nnz, "bytes_dense": bytes_dense,
+            "bound_ms": max(t_tc, t_nnz),
+            "bound_by": "bytes" if t_nnz >= t_tc else "operations",
+            "bound_dense_ms": max(t_tc, t_dense),
+            "bound_f32_fma_ms": max(flops / PEAK_F32_FLOPS * 1e3, t_nnz),
+            "blocks": n_tiles * -(-s // general.TILE_S)
+            * -(-tile // (warpgroups * general.WARPGROUP_P))}
 
 
 def k3_phase(gen) -> dict:
     """K3 against its plain version, then timed at the one-shot general
-    path's shape."""
+    and cubic shapes."""
     import torch
     from go_audio_resampler_tpu_torch.ops import general
 
-    def check(name, x, m, starts, w_band, tile):
-        y = general.general_resample(x, m, starts, w_band=w_band, tile=tile)
+    def check(name, x, m, starts, w_band, tile, bands, warpgroups=2):
+        y = general.general_resample(x, m, starts, w_band=w_band, tile=tile,
+                                     bands=bands, warpgroups=warpgroups)
         ref = general.general_resample_reference(x, m, starts,
                                                  w_band=w_band, tile=tile)
         torch.cuda.synchronize()
         err = (y - ref).abs().max().item()
         print(f"  K3 {name}: x {tuple(x.shape)}, M {tuple(m.shape)}, "
-              f"w_band {w_band}, tile {tile}, starts {starts.dtype}: "
-              f"max |kernel - plain| = {err:.3g}")
+              f"w_band {w_band}, tile {tile}, starts {starts.dtype}, "
+              f"{warpgroups} warpgroup(s) a block: max |kernel - plain| = "
+              f"{err:.3g}")
         require(y.shape == (x.shape[0], m.shape[0] * tile)
                 and math.isfinite(err), f"K3 {name}: shape {tuple(y.shape)}")
         require(err <= KERNEL_TOL, f"K3 {name}: {err} > {KERNEL_TOL}")
         return err
 
-    def random_case(s, n_tiles, w_band, tile, n):
+    def random_case(s, n_tiles, w_band, tile, n, band=None):
         x = torch.randn((s, n), generator=gen, device="cuda")
         m = torch.randn((n_tiles, w_band, tile), generator=gen,
                         device="cuda") / math.sqrt(w_band)
+        if band is not None:                # taps lo + p//2 + [0, width)
+            w = (torch.arange(w_band, device="cuda")[:, None] - band[0]
+                 - torch.arange(tile, device="cuda")[None, :] // 2)
+            m = m * ((w >= 0) & (w < band[1]))
         starts = torch.sort(torch.randint(-3, n - w_band // 2, (n_tiles,),
                                           generator=gen, device="cuda")).values
-        return x, m, starts
+        return x, m, starts, w_band, tile, general.band_table(m).cuda()
 
-    plan, starts, m, count = general_case()
-    n_tiles, w_band, tile = m.shape
-    i_last = int(starts[-1].item())
-    x = 0.5 * torch.randn((ONESHOT_STREAMS, i_last + w_band), generator=gen,
-                          device="cuda")
-    errs = [check("one-shot general path", x, m, starts, w_band, tile)]
-    errs.append(check("int32 starts", x, m, starts.int(), w_band, tile))
-    errs.append(check("ragged streams and columns",
-                      *random_case(65, 7, 17, 200, 500), 17, 200))
-    errs.append(check("one tile, one stream",
-                      *random_case(1, 1, 300, 256, 400), 300, 256))
+    errs, shapes, inputs = [], {}, {}
+    for shape in K3_SHAPES:
+        starts, m, bands, wgs = k3_operands(shape)
+        n_tiles, w_band, tile = m.shape
+        x = 0.5 * torch.randn((ONESHOT_STREAMS, int(starts[-1].item())
+                               + w_band), generator=gen, device="cuda")
+        inputs[shape] = (x, m, starts, bands, wgs)
+        for w in (wgs, 3 - wgs):            # its block width, and the other
+            errs.append(check(f"one-shot {shape} shape", x, m, starts,
+                              w_band, tile, bands, w))
+        errs.append(check(f"one-shot {shape} shape, 65 streams",
+                          torch.cat([x, x[:1]]), m, starts.int(), w_band,
+                          tile, bands, wgs))
+    for w in (1, 2):
+        errs.append(check("ragged streams and columns",
+                          *random_case(65, 7, 17, 200, 500), w))
+        errs.append(check("one tile, one stream",
+                          *random_case(1, 1, 300, 256, 400), w))
+        errs.append(check("narrow bands, several column blocks",
+                          *random_case(66, 9, 300, 512, 4000, (40, 12)), w))
+        errs.append(check("4-byte copies (tile 30, rows of 601)",
+                          *random_case(9, 4, 37, 30, 601), w))
     # Offsets past 2^31 elements: windows near the end of row 1 of a
     # [2, 1.2e9] input.
     big_n = 1_200_000_000
@@ -540,7 +616,9 @@ def k3_phase(gen) -> dict:
     mb = torch.randn((4, 300, 256), generator=gen, device="cuda") / 17.0
     sb = torch.tensor([big_n - 2000, big_n - 1500, big_n - 700, big_n - 250],
                       device="cuda")
-    yb = general.general_resample(xb, mb, sb, w_band=300, tile=256)
+    yb = general.general_resample(xb, mb, sb, w_band=300, tile=256,
+                                  bands=general.band_table(mb).cuda(),
+                                  warpgroups=1)
     lo = big_n - 2000
     ref = general.general_resample_reference(xb[1:, lo:].contiguous(), mb,
                                              sb - lo, w_band=300, tile=256)
@@ -552,34 +630,49 @@ def k3_phase(gen) -> dict:
     del xb, yb, ref
     torch.cuda.empty_cache()
 
-    kw = dict(w_band=w_band, tile=tile)
-    ms = cuda_ms(lambda: general.general_resample(x, m, starts, **kw), 50)
-    plain_ms = cuda_ms(lambda: general.general_resample_reference(
-        x, m, starts, **kw), 20)
-    # No single PyTorch call computes K3; the nearest is one batched
-    # product over frames already gathered (the gather not timed).
-    idx = starts[:, None] + torch.arange(w_band, device="cuda")[None, :]
-    frames = x[:, idx].permute(1, 0, 2).contiguous()          # [T, S, W]
-    bmm_ms = cuda_ms(lambda: torch.bmm(frames, m), 50)
-    nnz = int(torch.count_nonzero(m).item())
-    flops = 2 * ONESHOT_STREAMS * nnz
-    bytes_ = (4 * (m.numel() + x.numel() + ONESHOT_STREAMS * n_tiles * tile)
-              + starts.numel() * starts.element_size())
-    bound_ms, bound_by = bound(flops, bytes_)
-    print(f"  K3 one-shot shape: kernel {ms:.5f} ms, plain (gather+einsum) "
-          f"{plain_ms:.5f} ms, no single library call (nearest: torch.bmm "
-          f"over the gathered frames, gather not timed, {bmm_ms:.5f} ms); "
-          f"bound {bound_ms:.5f} ms, {bound_by} ({flops} flops on the {nnz} "
-          f"non-zeros of M, {bytes_} bytes; M is {4 * m.numel()} bytes); "
-          f"kernel reaches {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of "
-          f"useful work")
+    for shape, (x, m, starts, bands, wgs) in inputs.items():
+        n_tiles, w_band, tile = m.shape
+        kw = dict(w_band=w_band, tile=tile)
+        cost = k3_cost(x, m, starts, bands, wgs)
+        ms = graph_ms(lambda: general.general_resample(
+            x, m, starts, bands=bands, warpgroups=wgs, **kw))
+        plain_ms = graph_ms(lambda: general.general_resample_reference(
+            x, m, starts, **kw), reps=5, iters=5)
+        # No single PyTorch call computes K3; the nearest is one batched
+        # product over frames already gathered (the gather not timed).
+        idx = starts[:, None] + torch.arange(w_band, device="cuda")[None, :]
+        frames = x[:, idx].permute(1, 0, 2).contiguous()      # [T, S, W]
+        bmm = torch.bmm(frames, m).permute(1, 0, 2).reshape(x.shape[0], -1)
+        bmm_err = (bmm - general.general_resample(
+            x, m, starts, bands=bands, warpgroups=wgs, **kw)).abs().max().item()
+        require(bmm_err <= KERNEL_TOL, f"K3 {shape}: torch.bmm disagrees "
+                f"by {bmm_err}")
+        bmm_ms = graph_ms(lambda: torch.bmm(frames, m), reps=5, iters=5)
+        print(f"  K3 one-shot {shape} shape: kernel {ms:.5f} ms, plain "
+              f"(gather+einsum) {plain_ms:.5f} ms, no single library call "
+              f"(nearest: torch.bmm over the gathered frames, gather not "
+              f"timed, {bmm_ms:.5f} ms); bound {cost['bound_ms']:.5f} ms, "
+              f"{cost['bound_by']} ({cost['bytes']} bytes with M's "
+              f"{cost['nnz_share']:.4f} non-zeros, 3x{cost['flops_nnz']} "
+              f"TF32 flops), dense-M bound {cost['bound_dense_ms']:.5f} ms "
+              f"({cost['bytes_dense']} bytes); kernel at "
+              f"{cost['bound_ms'] / ms:.3f} of its bound; bands hold "
+              f"{cost['band_share_8_columns']:.4f} (8 columns) and "
+              f"{cost['band_share_warpgroup']:.4f} (64 columns) of the "
+              f"dense product, a 64-column group's band "
+              f"{cost['own_share_of_pairs']:.4f} of its 128-column pair's; "
+              f"{cost['blocks']} blocks of {wgs} warpgroup(s)")
+        shapes[shape] = {"ms": ms, "plain_ms": plain_ms,
+                         "bmm_gathered_ms": bmm_ms, **cost}
+    main = shapes["general"]
     return {"name": "general_resample", "route": "cuda",
             "source": "go_audio_resampler_tpu_torch/ops/csrc/"
                       "general_resample.cu",
             "replaces": "go_audio_resampler_tpu/ops/pallas_fused.py:502",
-            "launches": None, "max_abs_err": max(errs), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "launches": None, "max_abs_err": max(errs), "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "shapes": shapes}
 
 
 def expected_launches(plan, n: int, n_chunks: int, ipx: int, p2: int,
@@ -837,9 +930,9 @@ def decim_path(gen, card: str) -> tuple[int, int]:
     return counts[1][0], counts[3][1]
 
 
-def oneshot_phase(gen, card: str) -> tuple[int, int]:
+def oneshot_phase(gen, card: str) -> tuple[int, dict]:
     """64 streams x 2 s through ``oneshot`` for five topologies; returns
-    the (K1, K3) launches."""
+    the K1 launches and the K3 launches of each K3 shape."""
     import importlib
     import torch
     from go_audio_resampler_tpu_torch import Quality, oneshot, plan_engine
@@ -857,7 +950,7 @@ def oneshot_phase(gen, card: str) -> tuple[int, int]:
         ("48k->96k HIGH (dft_up, K1 through the banded convolution)",
          plan_engine(DECIM_IN, 96000, Quality.HIGH), (1, 0)),
     ]
-    totals = [0, 0]
+    k1_total, k3_by_shape = 0, {}
     for name, plan, (want_k1, want_k3) in cases:
         n = ONESHOT_SECONDS * int(plan.input_rate)
         canonical = plan.lengths.canonical(n)
@@ -898,8 +991,9 @@ def oneshot_phase(gen, card: str) -> tuple[int, int]:
         require((k1, k2, k3) == (want_k1, 0, want_k3),
                 f"{name}: launches K1 {k1}, K2 {k2}, K3 {k3}")
         require(bool(torch.isfinite(y).all()), f"{name}: non-finite output")
-        totals[0] += k1
-        totals[1] += k3
+        k1_total += k1
+        if want_k3:
+            k3_by_shape[name.split("(")[1].split(",")[0]] = k3
         want = oneshot(plan, x[:4].cpu().double().numpy(), device="cpu")
         err = float(np.abs(y[:4].cpu().double().numpy()
                            - want.numpy()).max())
@@ -937,7 +1031,7 @@ def oneshot_phase(gen, card: str) -> tuple[int, int]:
             print(f"  one-shot {name}: {ms:.5f} ms, {count:g} per call: "
                   f"{key[:80]}")
         require(err <= ENGINE_TOL, f"{name}: {err} > {ENGINE_TOL}")
-    return totals[0], totals[1]
+    return k1_total, k3_by_shape
 
 
 
@@ -1076,7 +1170,10 @@ def main() -> int:
     print("decimation path:")
     decim_k1, decim_k2 = decim_path(gen, card)
     print("one-shot:")
-    oneshot_k1, k3["launches"] = oneshot_phase(gen, card)
+    oneshot_k1, k3_by_shape = oneshot_phase(gen, card)
+    k3["launches"] = sum(k3_by_shape.values())
+    for shape, count in k3_by_shape.items():
+        k3["shapes"][shape]["launches"] = count
     print(f"  launches by path: K1 {k1['launches']} (main path), "
           f"{decim_k1} (decimation), {oneshot_k1} (one-shot); K2 "
           f"{k2['launches']} (time-major), {decim_k2} (decimation); K3 "

@@ -348,18 +348,20 @@ def _banded_aux(r: np.ndarray, ipx: int, dtype: torch.dtype, device):
     return r_t, ipx, banded.prepare_on_card(r_t)
 
 
-def _banded_tiles_apply(u: torch.Tensor, starts_d: torch.Tensor,
-                        m_d: torch.Tensor, last_start: int,
+def _banded_tiles_apply(u: torch.Tensor, aux, last_start: int,
                         count: int) -> torch.Tensor:
     """Apply per-tile banded matrices: the general/cubic one-shot core.
 
-    ``m_d`` is [n_tiles, w_band, tile] on ``u``'s device.  The K3 kernel
-    on the card reads each tile's window of ``u`` in place; on the CPU its
+    ``aux`` is (starts, M [n_tiles, w_band, tile], bands, warpgroups) on
+    ``u``'s device (:func:`_upload`).  The K3 kernel on the card reads each
+    tile's window of ``u`` in place and M within its bands; on the CPU its
     plain version gathers the windows.
     """
+    starts_d, m_d, bands, warpgroups = aux
     w_band, tile = int(m_d.shape[1]), int(m_d.shape[2])
     u = _pad_right(u, last_start + w_band)
-    y = general.general_resample(u, m_d, starts_d, w_band=w_band, tile=tile)
+    y = general.general_resample(u, m_d, starts_d, w_band=w_band, tile=tile,
+                                 bands=bands, warpgroups=warpgroups)
     return y[:, :count]
 
 
@@ -371,14 +373,14 @@ def _poly_apply_general(plan: EnginePlan, xext: torch.Tensor, count: int,
     but within a tile of outputs the windows span a bounded range, so
     each tile gets its own banded matrix (prestage composed in; see
     _general_matrices) over windows of ``xext`` (the raw input
-    left-padded by T1-1).  ``aux`` is (starts, M) on the device.
+    left-padded by T1-1).  ``aux`` is (starts, M, bands, warpgroups) on
+    the device.
     """
-    starts_d, m_d = aux
     # The last output's u-domain window start (the walk's last div), in x.
     at_last = plan.at0 + (count - 1) * plan.step
     last_start = ((at_last >> PHASE_FRAC_BITS) // plan.num_phases
                   // plan.factor)
-    return _banded_tiles_apply(xext, starts_d, m_d, last_start, count)
+    return _banded_tiles_apply(xext, aux, last_start, count)
 
 
 def _banded_apply(x: torch.Tensor, count: int, aux) -> torch.Tensor:
@@ -401,13 +403,19 @@ def _banded_apply(x: torch.Tensor, count: int, aux) -> torch.Tensor:
 
 def _upload(starts_m, dtype: torch.dtype, device):
     """(starts, M [n_tiles, tile, W]) from the host to the device as
-    (starts int64, M [n_tiles, W, tile] in ``dtype``), the layout K3
-    reads."""
+    (starts int64, M [n_tiles, W, tile] in ``dtype``, bands, warpgroups),
+    the layout K3 reads; ``bands`` is M's band table
+    (``general.band_table``) and ``warpgroups`` the kernel's block width
+    for it (``general.block_warpgroups``), both from the values uploaded,
+    on the host."""
     starts, m = starts_m
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
-    m_t = np.ascontiguousarray(m.transpose(0, 2, 1), dtype=np_dtype)
+    m_t = torch.from_numpy(np.ascontiguousarray(m.transpose(0, 2, 1),
+                                                dtype=np_dtype))
+    bands = general.band_table(m_t)
     return (torch.as_tensor(starts, dtype=torch.int64, device=device),
-            torch.from_numpy(m_t).to(device))
+            m_t.to(device), bands.to(device),
+            general.block_warpgroups(bands))
 
 
 def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device):
@@ -416,8 +424,9 @@ def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device):
     Every operator is designed (and cached) on the host and uploaded
     here, so that :func:`_oneshot_apply` is device work only:
 
-    - general and cubic: (starts, M), the banded tile matrices (tens of
-      MB per (plan, length));
+    - general and cubic: (starts, M, bands, warpgroups), the banded tile
+      matrices (tens of MB per (plan, length)), their band table and the
+      K3 block width for them;
     - rational: (R_t, Ipx, op), the superframed per-period operator;
     - decimate: (R_t, Ipx, op), the per-period matrix at the kernel's
       period on the card and the plain version's on the CPU;
@@ -471,12 +480,11 @@ def _oneshot_apply(plan: EnginePlan, x: torch.Tensor, aux) -> torch.Tensor:
     z = lm.flush_pad(n)
 
     if plan.kind == 'cubic':
-        starts_d, m_d = aux
-        w_band = int(m_d.shape[1])
+        w_band = int(aux[1].shape[1])
         i_last = ((canonical - 1) * plan.cubic_step) >> CubicSim.FRAC_BITS
         histbuf = _pad(x, 3, max(0, i_last + w_band + 1 - (n + 3)))
         # Tile starts are <= the last window index; i_last bounds them.
-        return _banded_tiles_apply(histbuf, starts_d, m_d, i_last, canonical)
+        return _banded_tiles_apply(histbuf, aux, i_last, canonical)
 
     if plan.kind == 'dft_up':
         if plan.factor == 1:

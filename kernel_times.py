@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's banded kernels, K1 and K2, at the main path's and the
-decimation path's shapes, for one tree of the repository.
+"""Time the port's kernels, for one tree of the repository: K1 and K2 at
+the main path's and the decimation path's shapes, K3 at the one-shot
+general and cubic shapes.
 
     python3 kernel_times.py [--root DIR] [--tag NAME] [--seed N]
                             [--path-runs N]
@@ -16,10 +17,16 @@ into a directory that ``.gitignore`` lists, and the working tree.
 Shapes: 44.1 kHz -> 48 kHz HIGH, 1024 streams, one 2352-sample step
 ([1024, 2646] data, R_t [343, 160], 16 frames); 48 kHz -> 16 kHz HIGH,
 256 streams, one 3072-sample step ([256, 4422] data, R_t [2882, 512], 2
-frames).  K2 takes the same data transposed.  Each time is a CUDA graph of
-20 launches replayed 10 times (``chip_smoke.graph_ms``), so the host's
-enqueue time is not counted.  Inputs come from ``--seed``; TF32 is off
-for the plain versions.
+frames).  K2 takes the same data transposed.  K3: 64 streams of 2 s,
+44.1 kHz -> 48.001 kHz HIGH (x [64, 88783], M [376, 420, 256]) and
+44.1 kHz -> 48 kHz QUICK (M [376, 239, 256]), as ``chip_smoke.k3_operands``
+builds them; M's band table and block width go to a tree whose wrapper
+takes ``bands`` and ``warpgroups`` (the other block width is timed too),
+and ``torch.bmm`` over the gathered frames (the gather not
+timed) is timed beside it.  Each time is a CUDA graph of 20 launches
+replayed 10 times (``chip_smoke.graph_ms``; 5 of 5 for ``bmm``), so the
+host's enqueue time is not counted.  Inputs come from ``--seed``; TF32
+is off for the plain versions.
 
 ``--path-runs N`` also drives ``chip_smoke.py``'s decimation path (48 kHz
 -> 16 kHz HIGH, 256 streams x 10.016 s, 3072-sample steps) N times
@@ -39,7 +46,8 @@ import subprocess
 import sys
 
 from chip_smoke import (DECIM_IN, DECIM_OUT, DECIM_SAMPLES, DECIM_STREAMS,
-                        graph_ms, timed_run)
+                        K3_SHAPES, ONESHOT_STREAMS, graph_ms, k3_operands,
+                        timed_run)
 
 
 def path_runs(runs: int, gen) -> dict:
@@ -101,14 +109,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.abspath(args.root))
     from go_audio_resampler_tpu_torch import EngineCore, Quality, plan_engine
-    from go_audio_resampler_tpu_torch.ops import _build, fused, tmajor
+    from go_audio_resampler_tpu_torch.ops import _build, fused, general, tmajor
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    _build.build_all(["fused_resample", "fused_resample_tmajor"])
+    _build.build_all(["fused_resample", "fused_resample_tmajor",
+                      "general_resample"])
     takes_op = "op" in inspect.signature(fused.fused_resample).parameters
+    k3_params = inspect.signature(general.general_resample).parameters
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
@@ -138,6 +148,33 @@ def main() -> int:
             lambda: fused.fused_resample(x, rt, **kw))
         out[f"k2_{shape}_ms"] = graph_ms(
             lambda: tmajor.fused_resample_tmajor(xt, r, **kw))
+    for shape in K3_SHAPES:
+        starts, m, bands, wgs = k3_operands(shape)
+        _, w_band, tile = m.shape
+        x = 0.5 * torch.randn((ONESHOT_STREAMS, int(starts[-1]) + w_band),
+                              generator=gen, device="cuda")
+        kw = dict(w_band=w_band, tile=tile)
+        if "bands" in k3_params:
+            kw["bands"] = bands
+        if "warpgroups" in k3_params:
+            kw["warpgroups"] = wgs
+            out[f"k3_{shape}_warpgroups"] = wgs
+        ref = general.general_resample_reference(x, m, starts, w_band=w_band,
+                                                 tile=tile)
+        y = general.general_resample(x, m, starts, **kw)
+        idx = starts[:, None] + torch.arange(w_band, device="cuda")[None, :]
+        frames = x[:, idx].permute(1, 0, 2).contiguous()     # [T, S, W]
+        torch.cuda.synchronize()
+        out[f"k3_{shape}_err"] = (y - ref).abs().max().item()
+        out[f"k3_{shape}_ms"] = graph_ms(
+            lambda: general.general_resample(x, m, starts, **kw))
+        if "warpgroups" in kw:              # the block width not chosen
+            other = dict(kw, warpgroups=3 - wgs)
+            out[f"k3_{shape}_other_width_ms"] = graph_ms(
+                lambda: general.general_resample(x, m, starts, **other))
+        out[f"bmm_{shape}_ms"] = graph_ms(lambda: torch.bmm(frames, m),
+                                          reps=5, iters=5)
+        del frames
     if args.path_runs:
         out["decimation_runs"] = path_runs(args.path_runs, gen)
     print(json.dumps(out))

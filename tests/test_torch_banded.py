@@ -173,14 +173,20 @@ def test_library_path_follows_the_included_headers(tmp_path, monkeypatch):
     assert [p.name for p in _build.sources("fused_resample")] == [
         "fused_resample.cu", "banded_mma.cuh"]
     assert [p.name for p in _build.sources("general_resample")] == [
-        "general_resample.cu"]
+        "general_resample.cu", "banded_mma.cuh"]
     k1, k2, k3 = (_build.library_path(n) for n in (
         "fused_resample", "fused_resample_tmajor", "general_resample"))
+    source = csrc / "general_resample.cu"
+    source.write_text(source.read_text() + "\n// edited\n")
+    assert _build.library_path("general_resample") != k3
+    assert _build.library_path("fused_resample") == k1
+    k3 = _build.library_path("general_resample")
     header = csrc / "banded_mma.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert _build.library_path("fused_resample") != k1
     assert _build.library_path("fused_resample_tmajor") != k2
-    assert _build.library_path("general_resample") == k3
+    assert _build.library_path("general_resample") != k3
+    k3 = _build.library_path("general_resample")
     (csrc / "unrelated.cuh").write_text("// not included\n")
     assert _build.library_path("general_resample") == k3
 

@@ -11,7 +11,7 @@ root (``--noconftest`` skips the JAX set-up of ``tests/conftest.py``):
 
 Oracles are the port's own plain versions, with TF32 off: the kernel is
 held against its plain version in float32 to 2e-5 (summation order
-differs; K1 and K2 compute in three TF32 passes on the tensor cores),
+differs; K1, K2 and K3 compute in three TF32 passes on the tensor cores),
 each entry point against its float64 CPU run to 2e-5.
 """
 
@@ -194,30 +194,95 @@ def test_k2_matches_plain_version_and_k1(cuda, s, nf, rates_q):
     assert torch.equal(y, y1.t())
 
 
-def _k3_case(s, n_tiles, w_band, tile, n, device, seed):
+def _k3_case(s, n_tiles, w_band, tile, n, device, seed, band=None):
+    """x, M, starts and M's band table; with ``band`` = (lo, width) tap
+    column p's non-zero taps are lo + p//2 + [0, width) (a narrow
+    diagonal band, zeros elsewhere)."""
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.normal(size=(s, n)).astype(np.float32))
-    m = torch.from_numpy((rng.normal(size=(n_tiles, w_band, tile))
-                          / np.sqrt(w_band)).astype(np.float32))
+    m = rng.normal(size=(n_tiles, w_band, tile)) / np.sqrt(w_band)
+    if band is not None:
+        lo, width = band
+        w = np.arange(w_band)[:, None] - lo - np.arange(tile)[None, :] // 2
+        m = m * ((w >= 0) & (w < width))
+    m = torch.from_numpy(m.astype(np.float32))
     starts = torch.from_numpy(np.sort(rng.integers(-3, n - w_band // 2,
                                                    size=n_tiles)))
-    return x.to(device), m.to(device), starts.to(device)
+    return (x.to(device), m.to(device), starts.to(device),
+            general.band_table(m).to(device))
+
+
+def _k3_oneshot(name, device):
+    """(starts, M, bands, warpgroups) of the one-shot path's K3 at 2 s of
+    44.1 kHz: 44.1k -> 48.001k HIGH (general) or 44.1k -> 48k QUICK
+    (cubic)."""
+    rates_q = {"general": (44100, 48001, Quality.HIGH),
+               "cubic": (44100, 48000, Quality.QUICK)}[name]
+    plan = plan_engine(*rates_q)
+    count = plan.lengths.canonical(88200)
+    build = (oneshot._cubic_matrices if plan.kind == "cubic"
+             else oneshot._general_matrices)
+    return oneshot._upload(build(plan, count), torch.float32, device)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,n_tiles,w_band,tile,n", [
-    (64, 40, 420, 256, 12000), (65, 7, 17, 200, 500), (1, 1, 300, 256, 400),
-    (5, 3, 239, 256, 2000),
+@pytest.mark.parametrize("warpgroups", [1, 2])
+@pytest.mark.parametrize("s,n_tiles,w_band,tile,n,band", [
+    (64, 40, 420, 256, 12000, None), (65, 7, 17, 200, 500, None),
+    (1, 1, 300, 256, 400, None), (5, 3, 239, 256, 2000, None),
+    (66, 9, 300, 512, 4000, (40, 12)), (3, 5, 61, 20, 900, (3, 5)),
+    (9, 4, 37, 30, 601, None),
 ])
-def test_k3_matches_plain_version(cuda, s, n_tiles, w_band, tile, n):
-    x, m, starts = _k3_case(s, n_tiles, w_band, tile, n, cuda, s)
+def test_k3_matches_plain_version(cuda, s, n_tiles, w_band, tile, n, band,
+                                  warpgroups):
+    x, m, starts, bands = _k3_case(s, n_tiles, w_band, tile, n, cuda, s,
+                                   band)
     ref = general.general_resample_reference(x, m, starts, w_band=w_band,
                                              tile=tile)
     for st in (starts, starts.int()):
         before = general.launches
-        y = general.general_resample(x, m, st, w_band=w_band, tile=tile)
+        y = general.general_resample(x, m, st, w_band=w_band, tile=tile,
+                                     bands=bands, warpgroups=warpgroups)
         torch.cuda.synchronize()
         assert general.launches == before + 1
+        assert y.shape == ref.shape == (s, n_tiles * tile)
+        assert (y - ref).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warpgroups", [1, 2])
+def test_k3_reads_m_only_within_its_bands(cuda, warpgroups):
+    """Values of M outside its band table are never read: poisoned with
+    NaN there, M gives the clean matrix's bits."""
+    x, m, starts, bands = _k3_case(7, 6, 200, 256, 3000, cuda, 12, (30, 9))
+    kw = dict(w_band=200, tile=256, bands=bands, warpgroups=warpgroups)
+    want = general.general_resample(x, m, starts, **kw)
+    b = bands.cpu().numpy()
+    inside = np.zeros(tuple(m.shape), bool)
+    for t in range(m.shape[0]):
+        for nb, (lo, hi) in enumerate(b[t]):
+            inside[t, 8 * lo:8 * hi, 8 * nb:8 * nb + 8] = True
+    poisoned = torch.where(torch.from_numpy(inside).to(cuda), m,
+                           torch.tensor(float("nan"), device=cuda))
+    assert torch.equal(general.general_resample(x, poisoned, starts, **kw),
+                       want)
+    assert (want - general.general_resample_reference(
+        x, m, starts, w_band=200, tile=256)).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["general", "cubic"])
+@pytest.mark.parametrize("s", [64, 65])
+def test_k3_matches_plain_version_at_the_one_shot_shapes(cuda, name, s):
+    starts, m, bands, warpgroups = _k3_oneshot(name, cuda)
+    assert warpgroups == {"general": 2, "cubic": 1}[name]
+    n_tiles, w_band, tile = m.shape
+    x = _data(s, int(starts[-1]) + w_band, cuda, s)
+    ref = general.general_resample_reference(x, m, starts, w_band=w_band,
+                                             tile=tile)
+    for w in (1, 2):
+        y = general.general_resample(x, m, starts, w_band=w_band, tile=tile,
+                                     bands=bands, warpgroups=w)
         assert y.shape == ref.shape == (s, n_tiles * tile)
         assert (y - ref).abs().max().item() <= TOL
 
@@ -234,14 +299,33 @@ def test_k2_k3_output_bits_do_not_depend_on_the_launch(cuda):
     b = tmajor.fused_resample_tmajor(xt[16 * ipx:].contiguous(), r,
                                      n_frames=16, **kw)
     assert torch.equal(whole, torch.cat([a, b]))
-    x, m, starts = _k3_case(6, 10, 300, 256, 5000, cuda, 3)
-    kw = dict(w_band=300, tile=256)
-    whole = general.general_resample(x, m, starts, **kw)
-    parts = [general.general_resample(x, m[i:j].contiguous(), starts[i:j],
-                                      **kw) for i, j in ((0, 4), (4, 10))]
-    assert torch.equal(whole, torch.cat(parts, dim=1))
-    assert torch.equal(general.general_resample(x[:2].contiguous(), m,
-                                                starts, **kw), whole[:2])
+    x, m, starts, bands = _k3_case(6, 10, 300, 256, 5000, cuda, 3)
+    for w in (1, 2):
+        kw = dict(w_band=300, tile=256, warpgroups=w)
+        whole = general.general_resample(x, m, starts, bands=bands, **kw)
+        parts = [general.general_resample(
+            x, m[i:j].contiguous(), starts[i:j],
+            bands=bands[i:j].contiguous(), **kw) for i, j in ((0, 4), (4, 10))]
+        assert torch.equal(whole, torch.cat(parts, dim=1))
+        assert torch.equal(general.general_resample(
+            x[:2].contiguous(), m, starts, bands=bands, **kw), whole[:2])
+    # At the one-shot shapes, with their block widths, across stream
+    # blocks: 65 streams against the first 64 and the last one alone, and
+    # a split of tiles.
+    for name in ("general", "cubic"):
+        starts, m, bands, w = _k3_oneshot(name, cuda)
+        n_tiles, w_band, tile = m.shape
+        kw = dict(w_band=w_band, tile=tile, bands=bands, warpgroups=w)
+        x = _data(65, int(starts[-1]) + w_band, cuda, 4)
+        whole = general.general_resample(x, m, starts, **kw)
+        assert torch.equal(general.general_resample(
+            x[:64].contiguous(), m, starts, **kw), whole[:64])
+        assert torch.equal(general.general_resample(
+            x[64:].contiguous(), m, starts, **kw), whole[64:])
+        h = n_tiles // 3
+        kw["bands"] = bands[h:].contiguous()
+        assert torch.equal(general.general_resample(
+            x, m[h:].contiguous(), starts[h:], **kw), whole[:, h * tile:])
 
 
 @pytest.mark.cuda
@@ -250,8 +334,8 @@ def test_k2_k3_reject_what_they_do_not_take(cuda):
     r = rt.t().contiguous()
     xt = torch.zeros((15 * ipx + wx, 4), device=cuda)
     kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=16)
-    x, m, starts = _k3_case(4, 3, 20, 16, 100, cuda, 4)
-    gk = dict(w_band=20, tile=16)
+    x, m, starts, bands = _k3_case(4, 3, 20, 16, 100, cuda, 4)
+    gk = dict(w_band=20, tile=16, bands=bands)
     before = (tmajor.launches, general.launches)
     with pytest.raises(TypeError, match="float32"):
         tmajor.fused_resample_tmajor(xt.double(), r.double(), **kw)
@@ -271,6 +355,14 @@ def test_k2_k3_reject_what_they_do_not_take(cuda):
         general.general_resample(x, m, starts.cpu(), **gk)
     with pytest.raises(TypeError, match="int32 or int64"):
         general.general_resample(x, m, starts.float(), **gk)
+    with pytest.raises(ValueError, match="bands=general.band_table"):
+        general.general_resample(x, m, starts, w_band=20, tile=16)
+    with pytest.raises(ValueError, match="bands must be"):
+        general.general_resample(x, m, starts, w_band=20, tile=16,
+                                 bands=bands.cpu())
+    with pytest.raises(ValueError, match="warpgroups must be 1 or 2"):
+        general.general_resample(x, m, starts, w_band=20, tile=16,
+                                 bands=bands, warpgroups=4)
     assert (tmajor.launches, general.launches) == before
 
 
@@ -399,13 +491,17 @@ def test_oneshot_matches_cpu_float64(cuda, rates_q, wrapper):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rates_q", [(44100, 48000, Quality.HIGH),
-                                     (48000, 16000, Quality.HIGH),
-                                     (48000, 96000, Quality.HIGH)])
-def test_oneshot_apply_prepares_nothing(cuda, monkeypatch, rates_q):
-    """``_oneshot_aux`` prepares every operator K1 reads (the dft_up
-    prestage's band included): the apply gives the same bits with the
-    preparation disabled."""
+@pytest.mark.parametrize("rates_q,wrapper", [
+    ((44100, 48000, Quality.HIGH), fused),
+    ((48000, 16000, Quality.HIGH), fused),
+    ((48000, 96000, Quality.HIGH), fused),
+    ((44100, 48001, Quality.HIGH), general),
+    ((44100, 48000, Quality.QUICK), general),
+])
+def test_oneshot_apply_prepares_nothing(cuda, monkeypatch, rates_q, wrapper):
+    """``_oneshot_aux`` prepares every operator K1 and K3 read (the dft_up
+    prestage's band and M's band table included): the apply gives the
+    same bits with the preparation disabled."""
     plan = plan_engine(*rates_q)
     x = _data(3, 5000, cuda, 23)
     aux = oneshot._oneshot_aux(plan, 5000, torch.float32, cuda)
@@ -416,6 +512,7 @@ def test_oneshot_apply_prepares_nothing(cuda, monkeypatch, rates_q):
 
     monkeypatch.setattr(banded, "prepare", no_preparation)
     monkeypatch.setattr(convolve, "band_matrix", no_preparation)
-    before = fused.launches
+    monkeypatch.setattr(general, "band_table", no_preparation)
+    before = wrapper.launches
     assert torch.equal(oneshot._oneshot_apply(plan, x, aux), want)
-    assert fused.launches == before + 1
+    assert wrapper.launches == before + 1
