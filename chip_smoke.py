@@ -43,10 +43,24 @@ is printed):
    float64 CPU ``oneshot``; host design, upload and device times apart.
 7. Chunking: ``process()`` with random chunk splits equals
    ``process_device`` bit for bit.
+8. Precision tiers ('high': three bf16 passes, 'default': one;
+   ``ops/precision.py``), each: K1 and K2 at the main and decimation
+   shapes and K3 at the general and cubic shapes (both block widths)
+   against their plain versions at the tier, within 2e-5 of max|y|, K2
+   equal to K1 bit for bit, timed beside the plain version, ``torch.matmul``
+   (``torch.bmm`` for K3) on bf16 operands and the tier's bounds; the
+   one-shot general path with ``GAR_TPU_MATMUL_PRECISION`` set to the tier
+   (one K3 launch, within the tier's bound of the float64 CPU run); the
+   main path's input through ``EngineCore`` and ``TimeMajorEngine`` at the
+   tier (190 launches each, equal bit for bit, within the tier's bound of
+   the float64 CPU run, the tier's THD pin on the 1 kHz stream); and the
+   dispatch gate: 'auto' and 'pallas' launch the kernel, 'xla' and
+   ``force_xla`` launch none and give the plain version's bits.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after; launches made to compare a kernel with its plain version
-are not counted.  The last three lines are the card, the kernels as JSON,
+are not counted.  The phases run in the order 1, 2, 8 (kernels and
+one-shot), 3, 4, 8 (engines and gate), 5, 6, 7.  The last three lines are the card, the kernels as JSON,
 and ``{"ok": true, "device": {...}}``.  Every time printed is this card's,
 measured in this run.
 """
@@ -54,8 +68,10 @@ measured in this run.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -67,12 +83,22 @@ import numpy as np
 #: Bounds below are stated against them.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 #: Tolerances: float32 kernel vs its float32 plain version (different
 #: summation order), and float32 engine vs the float64 CPU engine.
 KERNEL_TOL = 2e-5
 ENGINE_TOL = 2e-5
 THD_FLOOR_DB = -140.0          # QUALITY_tpu.json thd_44k_48k_high_db floor
+#: The reduced matmul tiers: bf16 passes a product, R's limbs, and their
+#: THD pins (tools/quality_tpu.py: thd_44k_48k_high_fast_tier_db and
+#: thd_44k_48k_high_ingest_tier_db).
+TIERS = ("high", "default")
+TIER_PASSES = {"high": 3, "default": 1}
+TIER_LIMBS = {"high": 2, "default": 1}
+TIER_THD_DB = {"high": -110.0, "default": -65.0}
+#: 'high' against float64: tests/test_precision_tier.py's bound, of max|y|.
+HIGH_TOL = 3e-4
 
 RATE_IN, RATE_OUT = 44100, 48000
 STREAMS, SECONDS, BLOCK = 1024, 10, 2352
@@ -89,6 +115,29 @@ def require(ok, what="check failed") -> None:
     """Fail the run (also under ``python -O``, which strips asserts)."""
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """Each kernel variant's registers and spills from a ``ptxas -v``
+    report, one line a variant, named by its template arguments (K1, K2:
+    <warpgroups, tier code>; K3: <warpgroups, k-steps a stage, tier code>;
+    tier codes as ``precision.TIER_CODES``)."""
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            m = re.search(r"([a-z][a-z_]*_kernel)I((?:Li\d+E)+)", line)
+            if m:
+                args = ", ".join(re.findall(r"Li(\d+)E", m.group(2)))
+                name = f"{m.group(1)}<{args}>"
+            else:
+                name = line.split()[-1][:60]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            regs = line.split(":", 1)[-1].strip()
+            out.append(f"{name}: {regs}; {spill}")
+            name, spill = "?", ""
+    return out
 
 
 def card_line() -> str:
@@ -190,8 +239,8 @@ def banded_cost(rt, op, rows: int, data_elems: int) -> dict:
     on R's non-zeros (2*nnz*rows) and on the kernels' band-limited walk
     (every 80-column tile over its band's k-steps, one pass of three), the
     bytes the function must move (the ``data_elems`` samples its frames
-    span and R read once, y written once), and its bounds on this card as
-    float32 FMAs and as three TF32 tensor-core passes."""
+    span and R's non-zeros read once, y written once), and its bounds on
+    this card as float32 FMAs and as three TF32 tensor-core passes."""
     import torch
     from go_audio_resampler_tpu_torch.ops import banded
     wx, p2 = rt.shape
@@ -199,7 +248,7 @@ def banded_cost(rt, op, rows: int, data_elems: int) -> dict:
     tiles = banded.tile_bands(op.bands.cpu())
     walk = int((tiles[:, 1] - tiles[:, 0]).sum()) * 8 * banded.TILE_N
     flops = 2 * nnz * rows
-    bytes_ = 4 * (data_elems + wx * p2 + rows * p2)
+    bytes_ = 4 * (data_elems + nnz + rows * p2)
     t_bytes = bytes_ / PEAK_HBM_BYTES * 1e3
     f32 = max(flops / PEAK_F32_FLOPS * 1e3, t_bytes)
     tc = max(3 * flops / PEAK_TF32_FLOPS * 1e3, t_bytes)
@@ -246,13 +295,14 @@ def kernel_phase(gen) -> dict:
     from go_audio_resampler_tpu_torch.ops import banded, fused
 
     def check(name, s, n_frames, rt, ipx, wx, p2, extra=0):
-        op = banded.prepare(rt)
+        op = banded.prepare(rt, tier="highest")
         x = torch.randn((s, (n_frames - 1) * ipx + wx + extra),
                         generator=gen, device="cuda")
         y = fused.fused_resample(x, rt, ipx=ipx, wx=wx, p2=p2,
-                                 n_frames=n_frames, op=op)
+                                 n_frames=n_frames, op=op, tier="highest")
         ref = fused.fused_resample_reference(x, rt, ipx=ipx, wx=wx, p2=p2,
-                                             n_frames=n_frames)
+                                             n_frames=n_frames,
+                                             tier="highest")
         torch.cuda.synchronize()
         err = (y - ref).abs().max().item()
         print(f"  K1 {name}: data {tuple(x.shape)}, R_t {tuple(rt.shape)}, "
@@ -275,12 +325,13 @@ def kernel_phase(gen) -> dict:
     errs.append(check("ragged", 5, 13, rt, ipx, wx, p2, extra=5)[2])
     # Rows that start off a 16-byte boundary take the 4-byte staging; the
     # bits equal those of the same data aligned.
-    kw13 = dict(ipx=ipx, wx=wx, p2=p2, n_frames=13, op=op)
+    kw13 = dict(ipx=ipx, wx=wx, p2=p2, n_frames=13, op=op, tier="highest")
     x_odd = torch.randn(6 * 2112 + 3, generator=gen,
                         device="cuda")[3:].view(6, 2112)
     y_odd = fused.fused_resample(x_odd, rt, **kw13)
     err = (y_odd - fused.fused_resample_reference(
-        x_odd, rt, ipx=ipx, wx=wx, p2=p2, n_frames=13)).abs().max().item()
+        x_odd, rt, ipx=ipx, wx=wx, p2=p2, n_frames=13,
+        tier="highest")).abs().max().item()
     same = torch.equal(y_odd, fused.fused_resample(x_odd.clone(), rt, **kw13))
     print(f"  K1 unaligned rows: data {tuple(x_odd.shape)} at a 12-byte "
           f"offset: max |kernel - plain| = {err:.3g}; equal to the aligned "
@@ -308,12 +359,12 @@ def kernel_phase(gen) -> dict:
     nfb = (big_n - wx) // ipx + 1
     xb = torch.empty((2, big_n), device="cuda").normal_(generator=gen)
     yb = fused.fused_resample(xb, rt, ipx=ipx, wx=wx, p2=p2, n_frames=nfb,
-                              op=op)
+                              op=op, tier="highest")
     tail = 64
     f0 = nfb - tail
     ref = fused.fused_resample_reference(
         xb[1:, f0 * ipx:].contiguous(), rt, ipx=ipx, wx=wx, p2=p2,
-        n_frames=tail)
+        n_frames=tail, tier="highest")
     err = (yb[1:, f0 * p2:] - ref).abs().max().item()
     torch.cuda.synchronize()
     print(f"  K1 64-bit offsets: data (2, {big_n}), y {tuple(yb.shape)}: "
@@ -328,7 +379,7 @@ def kernel_phase(gen) -> dict:
     for shape, x, r_t, op_, (ip, w, p, nf) in (
             ("main", x_main, rt, op, (ipx, wx, p2, n_frames)),
             ("decimation", x_dec, rt4, op4, (ipx4, wx4, p24, 2))):
-        kw = dict(ipx=ip, wx=w, p2=p, n_frames=nf)
+        kw = dict(ipx=ip, wx=w, p2=p, n_frames=nf, tier="highest")
         weight = r_t.t().contiguous()[:, None, :]             # [p2, 1, wx]
         lib_in = x[:, None, :(nf - 1) * ip + w].contiguous()
         frames = x.unfold(1, w, ip)[:, :nf]                   # [S, F, wx]
@@ -370,15 +421,18 @@ def k2_phase(gen) -> dict:
 
     def check(name, s, n_frames, rt, ipx, wx, p2, extra=0):
         r = rt.t().contiguous()
-        op = banded.prepare(rt)
+        op = banded.prepare(rt, tier="highest")
         xt = torch.randn(((n_frames - 1) * ipx + wx + extra, s),
                          generator=gen, device="cuda")
         y = tmajor.fused_resample_tmajor(xt, r, ipx=ipx, wx=wx, p2=p2,
-                                         n_frames=n_frames, op=op)
+                                         n_frames=n_frames, op=op,
+                                         tier="highest")
         ref = tmajor.fused_resample_tmajor_reference(xt, r, ipx=ipx, wx=wx,
-                                                     p2=p2, n_frames=n_frames)
+                                                     p2=p2, n_frames=n_frames,
+                                                     tier="highest")
         k1 = fused.fused_resample(xt.t().contiguous(), rt, ipx=ipx, wx=wx,
-                                  p2=p2, n_frames=n_frames, op=op)
+                                  p2=p2, n_frames=n_frames, op=op,
+                                  tier="highest")
         torch.cuda.synchronize()
         err = (y - ref).abs().max().item()
         same = bool(torch.equal(y, k1.t()))
@@ -421,11 +475,12 @@ def k2_phase(gen) -> dict:
     r = rt.t().contiguous()
     xb = torch.empty((big_n, 128), device="cuda").normal_(generator=gen)
     yb = tmajor.fused_resample_tmajor(xb, r, ipx=ipx, wx=wx, p2=p2,
-                                      n_frames=nfb, op=op)
+                                      n_frames=nfb, op=op, tier="highest")
     tail = 64
     f0 = nfb - tail
     ref = tmajor.fused_resample_tmajor_reference(
-        xb[f0 * ipx:].contiguous(), r, ipx=ipx, wx=wx, p2=p2, n_frames=tail)
+        xb[f0 * ipx:].contiguous(), r, ipx=ipx, wx=wx, p2=p2, n_frames=tail,
+        tier="highest")
     err = (yb[f0 * p2:] - ref).abs().max().item()
     torch.cuda.synchronize()
     print(f"  K2 64-bit offsets: xT ({big_n}, 128), yT {tuple(yb.shape)}: "
@@ -440,7 +495,7 @@ def k2_phase(gen) -> dict:
     for shape, xt, r_t, op_, (ip, w, p, nf) in (
             ("main", xt_main, rt, op, (ipx, wx, p2, n_frames)),
             ("decimation", xt_dec, rt4, op4, (ipx4, wx4, p24, 2))):
-        kw = dict(ipx=ip, wx=w, p2=p, n_frames=nf)
+        kw = dict(ipx=ip, wx=w, p2=p, n_frames=nf, tier="highest")
         s = xt.shape[1]
         r = r_t.t().contiguous()
         # Library yardsticks: conv1d on the stream-major copy (the
@@ -561,9 +616,11 @@ def k3_phase(gen) -> dict:
 
     def check(name, x, m, starts, w_band, tile, bands, warpgroups=2):
         y = general.general_resample(x, m, starts, w_band=w_band, tile=tile,
-                                     bands=bands, warpgroups=warpgroups)
+                                     bands=bands, warpgroups=warpgroups,
+                                     tier="highest")
         ref = general.general_resample_reference(x, m, starts,
-                                                 w_band=w_band, tile=tile)
+                                                 w_band=w_band, tile=tile,
+                                                 tier="highest")
         torch.cuda.synchronize()
         err = (y - ref).abs().max().item()
         print(f"  K3 {name}: x {tuple(x.shape)}, M {tuple(m.shape)}, "
@@ -618,10 +675,11 @@ def k3_phase(gen) -> dict:
                       device="cuda")
     yb = general.general_resample(xb, mb, sb, w_band=300, tile=256,
                                   bands=general.band_table(mb).cuda(),
-                                  warpgroups=1)
+                                  warpgroups=1, tier="highest")
     lo = big_n - 2000
     ref = general.general_resample_reference(xb[1:, lo:].contiguous(), mb,
-                                             sb - lo, w_band=300, tile=256)
+                                             sb - lo, w_band=300, tile=256,
+                                             tier="highest")
     err = (yb[1:] - ref).abs().max().item()
     print(f"  K3 64-bit offsets: x (2, {big_n}), windows at the end of row "
           f"1: max |kernel - plain| = {err:.3g}")
@@ -632,7 +690,7 @@ def k3_phase(gen) -> dict:
 
     for shape, (x, m, starts, bands, wgs) in inputs.items():
         n_tiles, w_band, tile = m.shape
-        kw = dict(w_band=w_band, tile=tile)
+        kw = dict(w_band=w_band, tile=tile, tier="highest")
         cost = k3_cost(x, m, starts, bands, wgs)
         ms = graph_ms(lambda: general.general_resample(
             x, m, starts, bands=bands, warpgroups=wgs, **kw))
@@ -974,7 +1032,8 @@ def oneshot_phase(gen, card: str) -> tuple[int, dict]:
         else:
             host = ()
         t1 = time.perf_counter()
-        aux = osm._oneshot_aux(plan, n, torch.float32, torch.device("cuda"))
+        aux = osm._oneshot_aux(plan, n, torch.float32, torch.device("cuda"),
+                               tier="highest")
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         # The entry point, as a user calls it.
@@ -1001,7 +1060,7 @@ def oneshot_phase(gen, card: str) -> tuple[int, dict]:
         # kernel's device time and every kernel's from torch.profiler, and
         # the span of the call on CUDA events (its host work included).
         def apply():
-            return osm._oneshot_apply(plan, x, aux)
+            return osm._oneshot_apply(plan, x, aux, tier="highest")
 
         span_ms = cuda_ms(apply, 10, warmup=1)
         kname = "general_resample_kernel" if want_k3 else \
@@ -1034,6 +1093,317 @@ def oneshot_phase(gen, card: str) -> tuple[int, dict]:
     return k1_total, k3_by_shape
 
 
+
+# -- precision tiers -------------------------------------------------------
+
+
+def tier_cost(tier: str, flops: int, bytes_: int) -> dict:
+    """The tier's bound: its bf16 passes at 989 TFLOP/s against the bytes
+    at 3.35 TB/s (R's limbs counted over its non-zeros, M's non-zeros as
+    float32)."""
+    t_ops = TIER_PASSES[tier] * flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = bytes_ / PEAK_HBM_BYTES * 1e3
+    return {"flops_nnz": flops, "bytes": bytes_, "bound_ms": max(t_ops,
+                                                                 t_bytes),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes}
+
+
+def rel_err(y, ref) -> tuple[float, float]:
+    """(max|y - ref|, that over max|ref|)."""
+    err = (y - ref).abs().max().item()
+    return err, err / max(ref.abs().max().item(), 1e-30)
+
+
+def tier_kernels(gen, tier: str) -> list[dict]:
+    """K1, K2 and K3 at ``tier`` against their plain versions at the tier
+    (TF32 off: the products are exact in both, only the sums' order
+    differs), K2 == K1 bit for bit, and timed at the paths' shapes."""
+    import torch
+    from go_audio_resampler_tpu_torch import Quality
+    from go_audio_resampler_tpu_torch.ops import banded, fused, general, tmajor
+
+    shapes, errs = {"K1": {}, "K2": {}, "K3": {}}, {"K1": [], "K2": [],
+                                                    "K3": []}
+    rt, ipx, wx, p2 = operator(Quality.HIGH)
+    carry = -(-(wx - ipx) // ipx) * ipx
+    rt4, ipx4, wx4, p24 = decim_operator()
+    for shape, (r_t, ip, w, p, s, nf, n) in {
+            "main": (rt, ipx, wx, p2, STREAMS, BLOCK // ipx, carry + BLOCK),
+            "decimation": (rt4, ipx4, wx4, p24, DECIM_STREAMS, 2,
+                           DECIM_CARRY + 2 * ipx4)}.items():
+        op = banded.prepare(r_t, tier)
+        require(op.tier == tier, f"prepared at {op.tier}")
+        kw = dict(ipx=ip, wx=w, p2=p, n_frames=nf, tier=tier)
+        x = torch.randn((s, n), generator=gen, device="cuda")
+        xt = x.t().contiguous()
+        r = r_t.t().contiguous()
+        y1 = fused.fused_resample(x, r_t, op=op, **kw)
+        ref = fused.fused_resample_reference(x, r_t, **kw)
+        y2 = tmajor.fused_resample_tmajor(xt, r, op=op, **kw)
+        ref2 = tmajor.fused_resample_tmajor_reference(xt, r, **kw)
+        torch.cuda.synchronize()
+        e1, e2 = rel_err(y1, ref), rel_err(y2, ref2)
+        same = bool(torch.equal(y2, y1.t()))
+        print(f"  {tier}: K1 and K2 at the {shape} shape, data "
+              f"{tuple(x.shape)}, R_t {tuple(r_t.shape)}, split {op.split}: "
+              f"max |kernel - plain| = {e1[0]:.3g} ({e1[1]:.3g} of max|y|) "
+              f"and {e2[0]:.3g} ({e2[1]:.3g}); K2 equal to K1 bit for bit: "
+              f"{same}")
+        require(e1[1] <= KERNEL_TOL and e2[1] <= KERNEL_TOL,
+                f"{tier} K1/K2 {shape}: {e1}, {e2}")
+        require(same, f"{tier} K2 {shape}: differs from K1")
+        errs["K1"].append(e1[0])
+        errs["K2"].append(e2[0])
+        # Library yardstick: one bf16 matmul of the unfold view (the
+        # casts are set-up, not timed); its output is bf16.
+        xb, rb = x.to(torch.bfloat16), r_t.to(torch.bfloat16)
+        frames = xb[:, :(nf - 1) * ip + w].unfold(1, w, ip)
+        frames_t = xb.t()[:(nf - 1) * ip + w].unfold(0, w, ip).transpose(1, 2)
+        rbt = r.to(torch.bfloat16)
+        nnz = int(torch.count_nonzero(r_t).item())
+        cost = tier_cost(tier, 2 * nnz * s * nf,
+                         4 * (s * ((nf - 1) * ip + w) + s * nf * p)
+                         + 2 * TIER_LIMBS[tier] * nnz)
+        for k, kernel, plain, lib in (
+                ("K1", lambda: fused.fused_resample(x, r_t, op=op, **kw),
+                 lambda: fused.fused_resample_reference(x, r_t, **kw),
+                 lambda: torch.matmul(frames, rb)),
+                ("K2", lambda: tmajor.fused_resample_tmajor(xt, r, op=op,
+                                                            **kw),
+                 lambda: tmajor.fused_resample_tmajor_reference(xt, r, **kw),
+                 lambda: torch.matmul(rbt, frames_t))):
+            ms = graph_ms(kernel)
+            plain_ms = graph_ms(plain, reps=5, iters=5)
+            lib_ms = graph_ms(lib, reps=5, iters=5)
+            print(f"  {tier}: {k} {shape} shape: kernel {ms:.5f} ms, plain "
+                  f"{plain_ms:.5f} ms, torch.matmul on bf16 operands "
+                  f"{lib_ms:.5f} ms; bound {cost['bound_ms']:.5f} ms "
+                  f"({cost['bound_by']}: {TIER_PASSES[tier]} bf16 passes "
+                  f"{cost['bound_ops_ms']:.5f} ms, {cost['bytes']} bytes "
+                  f"{cost['bound_bytes_ms']:.5f} ms); kernel at "
+                  f"{cost['bound_ms'] / ms:.3f} of its bound")
+            shapes[k][shape] = {"ms": ms, "plain_ms": plain_ms,
+                                "library_ms": lib_ms, **cost}
+        del frames, frames_t, xb
+
+    for shape in K3_SHAPES:
+        starts, m, bands, wgs = k3_operands(shape)
+        n_tiles, w_band, tile = m.shape
+        kw = dict(w_band=w_band, tile=tile, tier=tier)
+        x = 0.5 * torch.randn((ONESHOT_STREAMS, int(starts[-1].item())
+                               + w_band), generator=gen, device="cuda")
+        ref = general.general_resample_reference(x, m, starts, **kw)
+        for w in (wgs, 3 - wgs):
+            y = general.general_resample(x, m, starts, bands=bands,
+                                         warpgroups=w, **kw)
+            torch.cuda.synchronize()
+            e = rel_err(y, ref)
+            print(f"  {tier}: K3 one-shot {shape} shape, {w} warpgroup(s) "
+                  f"a block: max |kernel - plain| = {e[0]:.3g} ({e[1]:.3g} "
+                  "of max|y|)")
+            require(e[1] <= KERNEL_TOL, f"{tier} K3 {shape} {w}: {e}")
+            errs["K3"].append(e[0])
+        idx = starts[:, None] + torch.arange(w_band, device="cuda")[None, :]
+        frames = x[:, idx].permute(1, 0, 2).to(torch.bfloat16).contiguous()
+        mb = m.to(torch.bfloat16)
+        base = k3_cost(x, m, starts, bands, wgs)
+        cost = tier_cost(tier, base["flops_nnz"], base["bytes"])
+        ms = graph_ms(lambda: general.general_resample(
+            x, m, starts, bands=bands, warpgroups=wgs, **kw))
+        plain_ms = graph_ms(lambda: general.general_resample_reference(
+            x, m, starts, **kw), reps=5, iters=5)
+        lib_ms = graph_ms(lambda: torch.bmm(frames, mb), reps=5, iters=5)
+        print(f"  {tier}: K3 one-shot {shape} shape: kernel {ms:.5f} ms, "
+              f"plain {plain_ms:.5f} ms, torch.bmm on bf16 gathered frames "
+              f"(gather and casts not timed) {lib_ms:.5f} ms; bound "
+              f"{cost['bound_ms']:.5f} ms ({cost['bound_by']}: "
+              f"{TIER_PASSES[tier]} bf16 passes {cost['bound_ops_ms']:.5f} "
+              f"ms, {cost['bytes']} bytes with M's non-zeros as float32 "
+              f"{cost['bound_bytes_ms']:.5f} ms); kernel at "
+              f"{cost['bound_ms'] / ms:.3f} of its bound; {wgs} "
+              "warpgroup(s) a block")
+        shapes["K3"][shape] = {"ms": ms, "plain_ms": plain_ms,
+                               "bmm_bf16_gathered_ms": lib_ms, **cost}
+        del frames, mb
+    torch.cuda.empty_cache()
+
+    out = []
+    for k, name, src, line, first in (
+            ("K1", "fused_resample", "fused_resample.cu", 210, "main"),
+            ("K2", "fused_resample_tmajor", "fused_resample_tmajor.cu", 396,
+             "main"),
+            ("K3", "general_resample", "general_resample.cu", 502,
+             "general")):
+        main = shapes[k][first]
+        out.append({"name": f"{name}[{tier}]", "route": "cuda",
+                    "source": f"go_audio_resampler_tpu_torch/ops/csrc/{src}",
+                    "replaces": f"go_audio_resampler_tpu/ops/pallas_fused.py:"
+                                f"{line}",
+                    "tier": tier, "launches": None,
+                    "max_abs_err": max(errs[k]), "ms": main["ms"],
+                    "plain_ms": main["plain_ms"],
+                    "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"],
+                    # No single PyTorch call computes K3: its nearest, bmm
+                    # over gathered frames, is in shapes.
+                    "library_ms": main.get("library_ms"),
+                    "shapes": shapes[k]})
+    return out
+
+
+def tier_oneshot(x, card: str, tier: str, want=None) -> tuple[int, object]:
+    """x [64, 2 s] of 44.1k -> 48.001k HIGH through ``oneshot`` with
+    GAR_TPU_MATMUL_PRECISION set to ``tier``: one K3 launch, within the
+    tier's bound of the float64 CPU run (``want``, computed here if None;
+    returned with the K3 launches)."""
+    import importlib
+    import os
+    import torch
+    from go_audio_resampler_tpu_torch import Quality, oneshot, plan_engine
+    from go_audio_resampler_tpu_torch.ops import precision
+    osm = importlib.import_module("go_audio_resampler_tpu_torch.engine.oneshot")
+
+    plan = plan_engine(RATE_IN, 48001, Quality.HIGH)
+    n = x.shape[1]
+    if want is None:
+        want = oneshot(plan, x[:4].cpu().double().numpy(),
+                       device="cpu").numpy()
+    before = os.environ.get("GAR_TPU_MATMUL_PRECISION")
+    os.environ["GAR_TPU_MATMUL_PRECISION"] = tier
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        y = oneshot(plan, x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        if before is None:
+            del os.environ["GAR_TPU_MATMUL_PRECISION"]
+        else:
+            os.environ["GAR_TPU_MATMUL_PRECISION"] = before
+    canonical = plan.lengths.canonical(n)
+    require(tuple(y.shape) == (ONESHOT_STREAMS, canonical)
+            and bool(torch.isfinite(y).all()), f"{tier} one-shot output "
+            f"{tuple(y.shape)}, canonical {canonical}")
+    require(counts == (0, 0, 1), f"{tier} one-shot launches {counts}")
+    err = float(np.abs(y[:4].cpu().double().numpy() - want).max())
+    if tier == "high":
+        bound = HIGH_TOL * float(np.abs(want).max())
+    else:
+        _, m = osm._general_matrices(plan, canonical)
+        bound = precision.default_error_bound(
+            float(x.abs().max().item()), m.reshape(-1, m.shape[2]).T)
+    print(f"  {tier}: one-shot 44.1k->48.001k HIGH, [{ONESHOT_STREAMS}, {n}]"
+          f" -> {tuple(y.shape)} == canonical; launches K1 {counts[0]}, K3 "
+          f"{counts[2]}; max |cuda f32 - cpu f64| over 4 streams = {err:.3g} "
+          f"(bound {bound:.3g}); entry point {wall:.4f} s on {card}")
+    require(err <= bound, f"{tier} one-shot: {err} > {bound}")
+    return counts[2], want
+
+
+def tier_engines(main: dict, card: str, tier: str) -> tuple[int, int]:
+    """The main path's input through ``EngineCore`` (K1) and
+    ``TimeMajorEngine`` (K2) at ``tier``, then the dispatch gate at the
+    tier; returns (K1, K2) launches of the two runs."""
+    import torch
+    from go_audio_resampler_tpu_torch import (EngineCore, Quality,
+                                              TimeMajorEngine, plan_engine)
+    from go_audio_resampler_tpu_torch.ops import precision
+    from go_audio_resampler_tpu_torch.utils import metrics
+
+    plan = plan_engine(RATE_IN, RATE_OUT, Quality.HIGH)
+    x = main["x"]
+    n = x.shape[1]
+    canonical = plan.lengths.canonical(n)
+    chunks = [(a, min(n, a + BLOCK)) for a in range(0, n, BLOCK)]
+    eng = EngineCore(plan, batch=STREAMS, block=BLOCK, precision=tier)
+    require(eng._tier == tier and eng._band.op.tier == tier,
+            f"engine at {eng._tier}")
+    expected = expected_launches(plan, n, len(chunks), eng._band.ipx,
+                                 eng._band.p2, BLOCK, eng._drop_override)
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = [eng.process_device(x[:, a:b]) for a, b in chunks]
+    outs.append(eng.flush_device())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2, k3 = launch_counts()
+    y = torch.cat(outs, dim=1)
+    require(tuple(y.shape) == (STREAMS, canonical) and k1 == expected
+            and (k2, k3) == (0, 0), f"{tier} main path: {tuple(y.shape)}, "
+            f"launches {k1}, {k2}, {k3} (expected {expected})")
+    del outs
+    tm = TimeMajorEngine(plan, batch=STREAMS, block=BLOCK, precision=tier)
+    xt = x.t().contiguous()
+    reset_launches()
+    t1 = time.perf_counter()
+    outs = [tm.process_device(xt[a:b]) for a, b in chunks]
+    outs.append(tm.flush_device())
+    torch.cuda.synchronize()
+    wall_t = time.perf_counter() - t1
+    tk1, tk2, tk3 = launch_counts()
+    yt = torch.cat(outs)
+    del outs, xt
+    require(tk2 == expected and (tk1, tk3) == (0, 0),
+            f"{tier} time-major launches {tk1}, {tk2}, {tk3}")
+    same = bool(torch.equal(yt.t(), y))
+    del yt
+    require(bool(torch.isfinite(y).all()), f"{tier}: non-finite output")
+    got = y[:4].cpu().double().numpy()
+    err = float(np.abs(got - main["want"]).max())
+    if tier == "high":
+        bound = HIGH_TOL * float(np.abs(main["want"]).max())
+    else:
+        bound = precision.default_error_bound(
+            float(x[:4].abs().max().item()), eng._band.r_t)
+    thd = metrics.thd(got[0], RATE_OUT, 1000.0, 16384)
+    print(f"  {tier}: main path {STREAMS} streams x {n} samples: EngineCore "
+          f"{STREAMS * n / wall / 1e6:.1f} Msamples/s in ({k1} K1 launches),"
+          f" TimeMajorEngine {STREAMS * n / wall_t / 1e6:.1f} Msamples/s in "
+          f"({tk2} K2 launches) on {card}")
+    print(f"  {tier}: length {y.shape[1]} == canonical {canonical}; "
+          f"time-major equal to stream-major bit for bit: {same}; max |cuda "
+          f"f32 - cpu f64| over 4 streams = {err:.3g} (bound {bound:.3g}); "
+          f"THD of the 1 kHz stream = {thd:.2f} dB (pin "
+          f"{TIER_THD_DB[tier]} dB)")
+    require(same, f"{tier}: time-major differs from stream-major")
+    require(err <= bound, f"{tier}: {err} > {bound}")
+    require(thd <= TIER_THD_DB[tier], f"{tier}: THD {thd} dB")
+
+    # The gate, on 64 streams x 20 blocks.
+    xs = x[:64, :20 * BLOCK]
+    runs = {}
+    for mode in ("auto", "pallas", "xla", "force_xla"):
+        kw = dict(batch=64, block=BLOCK, precision=tier,
+                  dispatch="auto" if mode == "force_xla" else mode)
+        core, tme = EngineCore(plan, **kw), TimeMajorEngine(plan, **kw)
+        reset_launches()
+        with (precision.force_xla() if mode == "force_xla"
+              else contextlib.nullcontext()):
+            ys = torch.cat([core.process_device(xs), core.flush_device()], 1)
+            yts = torch.cat([tme.process_device(xs.t().contiguous()),
+                             tme.flush_device()])
+        torch.cuda.synchronize()
+        runs[mode] = (ys, yts, launch_counts())
+    gate = {m: c for m, (_, _, c) in runs.items()}
+    print(f"  {tier}: gate launches (K1, K2, K3) by mode: {gate}")
+    require(all(c[0] > 0 and c[1] > 0 for m, c in gate.items()
+                if m in ("auto", "pallas")), f"{tier}: gate {gate}")
+    require(gate["xla"] == gate["force_xla"] == (0, 0, 0),
+            f"{tier}: gate {gate}")
+    require(torch.equal(runs["xla"][0], runs["force_xla"][0])
+            and torch.equal(runs["xla"][1], runs["force_xla"][1])
+            and torch.equal(runs["auto"][0], runs["pallas"][0])
+            and torch.equal(runs["auto"][1], runs["pallas"][1]),
+            f"{tier}: modes of one route differ")
+    e = rel_err(runs["auto"][0], runs["xla"][0])
+    print(f"  {tier}: 'xla' == force_xla and 'auto' == 'pallas' bit for "
+          f"bit; max |kernel - plain| over the run = {e[0]:.3g} ({e[1]:.3g}"
+          " of max|y|)")
+    require(e[1] <= KERNEL_TOL, f"{tier}: engine kernel vs plain {e}")
+    return k1, tk2
 
 
 def chunking_phase(seed: int) -> None:
@@ -1150,9 +1520,8 @@ def main() -> int:
     print(f"build: {len(sources)} kernel(s) in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, log in _build.PTXAS_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for line in ptxas_summary(log):
+            print(f"  ptxas {name}: {line}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
@@ -1160,11 +1529,25 @@ def main() -> int:
     k1 = kernel_phase(gen)
     k2 = k2_phase(gen)
     k3 = k3_phase(gen)
+    print("precision tiers, kernels and one-shot:")
+    tiered, want = {}, None
+    x_oneshot = 0.5 * torch.randn((ONESHOT_STREAMS, ONESHOT_SECONDS
+                                   * RATE_IN), generator=gen, device="cuda")
+    for tier in TIERS:
+        tiered[tier] = tier_kernels(gen, tier)
+        tiered[tier][2]["launches"], want = tier_oneshot(x_oneshot, card,
+                                                         tier, want)
+    del x_oneshot
     print("main path:")
     main_run = main_path(gen, card)
     k1["launches"] = main_run["launches"]
     print("time-major path:")
     k2["launches"] = tmajor_path(main_run, card)
+    print("precision tiers, engines and the dispatch gate:")
+    for tier in TIERS:
+        launches = tier_engines(main_run, card, tier)
+        for entry, count in zip(tiered[tier], launches):
+            entry["launches"] = count
     del main_run
     torch.cuda.empty_cache()
     print("decimation path:")
@@ -1192,7 +1575,8 @@ def main() -> int:
         profile_phase(gen)
 
     print(card)
-    print(json.dumps({"kernels": [k1, k2, k3]}))
+    print(json.dumps({"kernels": [k1, k2, k3] + [
+        entry for tier in TIERS for entry in tiered[tier]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

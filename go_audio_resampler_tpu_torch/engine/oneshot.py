@@ -16,6 +16,10 @@ to the JAX package's.  The device work is then one kernel launch per call:
   banded matrix per tile of 256 outputs at a data-dependent start, the K3
   kernel (``ops/general.py``).
 
+Each call runs at the process-wide matmul tier (``GAR_TPU_MATMUL_PRECISION``,
+read once per call; ``ops/precision.py``), as the JAX package's one-shot
+path does, and each kernel call goes through the dispatch gate
+(``precision.dispatch_allowed``: its plain version inside ``force_xla``).
 On CPU tensors each kernel's wrapper computes its plain version.  Plans
 with the strict-antialias prefilter (``aa_taps > 0``) and the FFT-routed
 decimation are not ported yet and raise ``NotImplementedError``.
@@ -31,6 +35,7 @@ import torch
 
 from ..filterdesign.params import PHASE_FRAC_BITS
 from ..ops import banded, convolve, fused, general
+from ..ops.precision import check_tier, dispatch_allowed, dot_precision
 from .counts import CubicSim
 from .plan import EnginePlan
 from .stages import prestage_apply
@@ -44,10 +49,11 @@ _FRAC = 1 << PHASE_FRAC_BITS
 DECIM_FFT_MIN_TAPS = 16384
 
 _STRICT_AA = ("strict-antialias plans (aa_taps > 0) need pipeline/fused."
-              "compose, not ported yet (ROADMAP.md, \"Left to port\" 4)")
+              "compose, not ported yet (ROADMAP.md, queue 1 item 3, "
+              "pipeline/fused.py)")
 _FFT_DECIM = ("FFT-routed decimation (decim_taps >= DECIM_FFT_MIN_TAPS) "
-              "needs engine/fftstage, not ported yet (ROADMAP.md, "
-              "\"Left to port\" 5)")
+              "needs engine/fftstage, not ported yet (ROADMAP.md, queue 1 "
+              "item 4, engine/fftstage.py)")
 
 
 def _poly_walk_host(plan: EnginePlan, count: int):
@@ -340,33 +346,39 @@ def _matrix_t(r: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
                            device=device)
 
 
-def _banded_aux(r: np.ndarray, ipx: int, dtype: torch.dtype, device):
+def _banded_aux(r: np.ndarray, ipx: int, dtype: torch.dtype, device,
+                tier: str):
     """(R_t, Ipx, op) of a periodic banded operator: R_t on the device
-    and, on the card, R_t as K1 reads it (``banded.prepare``; None on the
-    CPU)."""
+    and, on the card, R_t as K1 reads it at ``tier`` (``banded.prepare``;
+    None on the CPU)."""
     r_t = _matrix_t(r, dtype, device)
-    return r_t, ipx, banded.prepare_on_card(r_t)
+    return r_t, ipx, banded.prepare_on_card(r_t, tier)
 
 
-def _banded_tiles_apply(u: torch.Tensor, aux, last_start: int,
-                        count: int) -> torch.Tensor:
+def _banded_tiles_apply(u: torch.Tensor, aux, last_start: int, count: int,
+                        tier: str) -> torch.Tensor:
     """Apply per-tile banded matrices: the general/cubic one-shot core.
 
     ``aux`` is (starts, M [n_tiles, w_band, tile], bands, warpgroups) on
     ``u``'s device (:func:`_upload`).  The K3 kernel on the card reads each
-    tile's window of ``u`` in place and M within its bands; on the CPU its
-    plain version gathers the windows.
+    tile's window of ``u`` in place and M within its bands; on the CPU (or
+    inside ``force_xla``) its plain version gathers the windows.  Both at
+    ``tier``.
     """
     starts_d, m_d, bands, warpgroups = aux
     w_band, tile = int(m_d.shape[1]), int(m_d.shape[2])
     u = _pad_right(u, last_start + w_band)
-    y = general.general_resample(u, m_d, starts_d, w_band=w_band, tile=tile,
-                                 bands=bands, warpgroups=warpgroups)
+    kw = dict(w_band=w_band, tile=tile, tier=tier)
+    if dispatch_allowed(tier):
+        y = general.general_resample(u, m_d, starts_d, bands=bands,
+                                     warpgroups=warpgroups, **kw)
+    else:
+        y = general.general_resample_reference(u, m_d, starts_d, **kw)
     return y[:, :count]
 
 
 def _poly_apply_general(plan: EnginePlan, xext: torch.Tensor, count: int,
-                        aux) -> torch.Tensor:
+                        aux, tier: str) -> torch.Tensor:
     """Banded batched matmul for non-exact-rational ratios (K3).
 
     The walk is quasi-periodic, so no single per-period matrix exists,
@@ -380,24 +392,28 @@ def _poly_apply_general(plan: EnginePlan, xext: torch.Tensor, count: int,
     at_last = plan.at0 + (count - 1) * plan.step
     last_start = ((at_last >> PHASE_FRAC_BITS) // plan.num_phases
                   // plan.factor)
-    return _banded_tiles_apply(xext, aux, last_start, count)
+    return _banded_tiles_apply(xext, aux, last_start, count, tier)
 
 
-def _banded_apply(x: torch.Tensor, count: int, aux) -> torch.Tensor:
+def _banded_apply(x: torch.Tensor, count: int, aux,
+                  tier: str) -> torch.Tensor:
     """One periodic banded operator over the input (K1): the JAX
     package's ``_poly_apply_rational_fused`` and ``_decim_apply_matmul``.
 
     Frames of ``x`` of width Wx advance Ipx per P outputs; ``aux`` is
-    (R_t [Wx, P], Ipx, op) from :func:`_banded_aux`.  ``x`` is
-    zero-extended on the right to cover the last frame; no intermediate
-    stream or frames are materialized.
+    (R_t [Wx, P], Ipx, op) from :func:`_banded_aux`, at ``tier``.  ``x``
+    is zero-extended on the right to cover the last frame; no
+    intermediate stream or frames are materialized.
     """
     r_t, ipx, op = aux
     wx, p2 = r_t.shape
     n_frames = -(-count // p2)
     x = _pad_right(x, (n_frames - 1) * ipx + wx)
-    y = fused.fused_resample(x, r_t, ipx=ipx, wx=wx, p2=p2,
-                             n_frames=n_frames, op=op)
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=n_frames, tier=tier)
+    if dispatch_allowed(tier):
+        y = fused.fused_resample(x, r_t, op=op, **kw)
+    else:
+        y = fused.fused_resample_reference(x, r_t, **kw)
     return y[:, :count]
 
 
@@ -418,11 +434,17 @@ def _upload(starts_m, dtype: torch.dtype, device):
             general.block_warpgroups(bands))
 
 
-def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device):
-    """Host-prepared device arguments of the one-shot apply.
+def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device,
+                 tier: str):
+    """Host-prepared device arguments of the one-shot apply, at the
+    resolved matmul tier ``tier`` (``precision.check_tier``; :func:`oneshot`
+    reads it once per call).
 
     Every operator is designed (and cached) on the host and uploaded
-    here, so that :func:`_oneshot_apply` is device work only:
+    here, so that :func:`_oneshot_apply` is device work only.  The host
+    caches hold float64 designs, the same at every tier; what is prepared
+    for a tier (K1's limbs) is prepared here on each call, carries its
+    tier, and is refused by a kernel call at another tier:
 
     - general and cubic: (starts, M, bands, warpgroups), the banded tile
       matrices (tens of MB per (plan, length)), their band table and the
@@ -433,8 +455,10 @@ def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device):
     - dft_up: (coeffs, band), the prestage's polyphase rows and, on the
       card, the banded lowering's operator for the padded input
       (``convolve.band_operator``; None on the CPU); none at factor 1;
-    - ``op`` is R_t as K1 reads it (``banded.prepare``), None on the CPU.
+    - ``op`` is R_t as K1 reads it (``banded.prepare``) at ``tier``, None
+      on the CPU.
     """
+    check_tier(tier)
     device = torch.device(device)
     canonical = plan.lengths.canonical(n)
     if canonical <= 0 or n <= 0:
@@ -450,28 +474,31 @@ def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device):
             return coeffs, None
         # The prestage reads xext = (0^(T1-1) x 0^z), as _oneshot_apply pads.
         n_ext = n + plan.pre_taps - 1 + plan.lengths.flush_pad(n)
-        return coeffs, convolve.band_operator(coeffs, n_ext, 1, dtype, device)
+        return coeffs, convolve.band_operator(coeffs, n_ext, 1, dtype, device,
+                                              tier)
     if plan.kind == 'decimate':
         if plan.decim_taps >= DECIM_FFT_MIN_TAPS:
             raise NotImplementedError(_FFT_DECIM)
         period = (PALLAS_DECIM_PERIOD if device.type == 'cuda'
                   else DECIM_PERIOD)
         r, _, ipx = _decim_matrix(plan, period)
-        return _banded_aux(r, ipx, dtype, device)
+        return _banded_aux(r, ipx, dtype, device, tier)
     # two_stage
     if plan.is_rational_exact:
         r, _, ipx, _lam = _fused_rational_matrix(plan)
         r, ipx = superframe(r, ipx)
-        return _banded_aux(r, ipx, dtype, device)
+        return _banded_aux(r, ipx, dtype, device, tier)
     if plan.aa_taps:
         raise NotImplementedError(_STRICT_AA)
     return _upload(_general_matrices(plan, canonical), dtype, device)
 
 
-def _oneshot_apply(plan: EnginePlan, x: torch.Tensor, aux) -> torch.Tensor:
+def _oneshot_apply(plan: EnginePlan, x: torch.Tensor, aux,
+                   tier: str) -> torch.Tensor:
     """The device part of :func:`oneshot`: x [S, n] in its final dtype
     and device, ``aux`` from :func:`_oneshot_aux` for the same plan, n,
-    dtype and device."""
+    dtype, device and resolved ``tier``."""
+    check_tier(tier)
     n = x.shape[1]
     lm = plan.lengths
     canonical = lm.canonical(n)
@@ -484,28 +511,29 @@ def _oneshot_apply(plan: EnginePlan, x: torch.Tensor, aux) -> torch.Tensor:
         i_last = ((canonical - 1) * plan.cubic_step) >> CubicSim.FRAC_BITS
         histbuf = _pad(x, 3, max(0, i_last + w_band + 1 - (n + 3)))
         # Tile starts are <= the last window index; i_last bounds them.
-        return _banded_tiles_apply(histbuf, aux, i_last, canonical)
+        return _banded_tiles_apply(histbuf, aux, i_last, canonical, tier)
 
     if plan.kind == 'dft_up':
         if plan.factor == 1:
             return x  # unity ratio: pass-through (dft_stage.go:57-59)
         xext = _pad(x, plan.pre_taps - 1, z)
-        u = prestage_apply(aux[0], xext, plan.factor, band=aux[1])
+        u = prestage_apply(aux[0], xext, plan.factor, tier, band=aux[1])
         drop = lm.drop_prefix()
         return u[:, drop:drop + canonical]
 
     if plan.kind == 'decimate':
         # windows at j*M over (x 0^z ...): the canonical grid
         need = (canonical - 1) * plan.factor + plan.decim_taps
-        return _banded_apply(_pad(x, 0, max(z, need - n)), canonical, aux)
+        return _banded_apply(_pad(x, 0, max(z, need - n)), canonical, aux,
+                             tier)
 
     # two_stage
     if plan.is_rational_exact:
-        return _banded_apply(x, canonical, aux)
+        return _banded_apply(x, canonical, aux, tier)
     # The prestage is composed into the banded tile matrices (x domain);
     # the device never materializes the 2x intermediate stream.
     xext = _pad(x, plan.pre_taps - 1, z)
-    return _poly_apply_general(plan, xext, canonical, aux)
+    return _poly_apply_general(plan, xext, canonical, aux, tier)
 
 
 def oneshot(plan: EnginePlan, x, dtype=None, device='cuda') -> torch.Tensor:
@@ -516,7 +544,9 @@ def oneshot(plan: EnginePlan, x, dtype=None, device='cuda') -> torch.Tensor:
     result is a tensor on ``device``: float32 on the card (the type its
     kernels take), float32 or float64 on the CPU (``dtype``, by default
     the input's).  Without a GPU the default ``device='cuda'`` raises;
-    pass ``device='cpu'`` to run the kernels' plain versions.
+    pass ``device='cpu'`` to run the kernels' plain versions.  float32
+    products run at the process-wide tier ``GAR_TPU_MATMUL_PRECISION``
+    (default 'highest'), read once per call; float64 is exact.
     """
     from .streaming import _torch_dtype
 
@@ -535,5 +565,6 @@ def oneshot(plan: EnginePlan, x, dtype=None, device='cuda') -> torch.Tensor:
         raise ValueError("oneshot: the CUDA kernels take float32; float64 "
                          "runs on device='cpu'")
     x = torch.as_tensor(x).to(device=device, dtype=dtype)
-    aux = _oneshot_aux(plan, int(x.shape[1]), dtype, device)
-    return _oneshot_apply(plan, x, aux)
+    tier = dot_precision(None)
+    aux = _oneshot_aux(plan, int(x.shape[1]), dtype, device, tier)
+    return _oneshot_apply(plan, x, aux, tier)

@@ -24,8 +24,9 @@ def prestage_apply(coeffs: torch.Tensor, xext: torch.Tensor, factor: int,
     ``coeffs`` [F, T1] are tap-reversed (design time), so this correlation
     is the reference's polyphase convolution.  On the card it is the K1
     kernel through the banded lowering of ``ops/convolve.py``, reading
-    ``band`` (``band_operator`` for xext's length) where given.  Only the
-    exact tier runs in this port: ``precision`` is 'auto' or 'highest'.
+    ``band`` (``band_operator`` for xext's length, at the tier) where
+    given.  ``precision`` is the matmul tier, one of
+    ``ops.precision.PRECISION_MODES``.
     """
     del factor  # implied by coeffs.shape[0]
     return conv1d_poly_interleaved(xext, coeffs, precision, band=band)

@@ -12,6 +12,11 @@ input FIFO, so arbitrary chunk sizes stream through it.  Each output
 sample is one fixed-order dot product over the input, so the emitted
 stream depends only on the concatenated input, not on how it was chunked.
 
+Each engine runs its products at one matmul tier (``precision``,
+resolved once when it is built; ``ops/precision.py``) and routes each step
+through the dispatch gate (``dispatch``): the kernel, or its plain
+version.
+
 Flush follows the reference's orchestration (resampler.go:275-322) via
 the length model: the engine feeds the zero padding that drains every
 stage, then trims the total stream to the canonical output count.
@@ -25,23 +30,38 @@ import numpy as np
 import torch
 
 from ..ops import banded, fused
+from ..ops.precision import (DISPATCH_MODES, PRECISION_MODES, dispatch_for,
+                             dot_precision)
 from ..pipeline.buffer import SampleFIFO
 from .oneshot import (DECIM_FFT_MIN_TAPS, _FFT_DECIM, _decim_matrix,
                       _fused_rational_matrix, superframe)
 from .plan import EnginePlan
 
-#: dispatch and precision values the JAX engine knows but this port does
-#: not run yet.
-_UNPORTED_DISPATCH = ('pallas', 'xla', 'tune')
-_UNPORTED_PRECISION = ('high', 'default')
-_UNPORTED_KNOB = ("is not ported yet (ROADMAP.md, queue 2 item 4: the "
-                  "precision tiers and the dispatch gate)")
+#: The JAX engine's measured choice of lowering, not ported yet.
+_TUNE = ("dispatch='tune' is not ported yet (ROADMAP.md, queue 1: "
+         "\"dispatch='tune'\")")
+
+
+def _check_knobs(dispatch: str, precision: str) -> str:
+    """``dispatch`` and ``precision`` checked as the JAX engine checks
+    them; returns the engine's tier (:func:`dot_precision` of
+    ``precision``, 'auto' read from the process-wide tier now)."""
+    if dispatch == 'tune':
+        raise NotImplementedError(_TUNE)
+    if dispatch not in DISPATCH_MODES:
+        raise ValueError(f"dispatch must be one of {DISPATCH_MODES}, got "
+                         f"{dispatch!r}")
+    if precision not in PRECISION_MODES:
+        raise ValueError(f"precision must be one of {PRECISION_MODES}, got "
+                         f"{precision!r}")
+    return dot_precision(precision)
 
 
 class Band(NamedTuple):
     """The fused banded step's operator: R_t [wx, p2] on the engine's
     device, its input period ipx, the carry length, and on the card R_t
-    as the kernels read it (``banded.prepare``; None on the CPU)."""
+    as the kernels read it at the engine's tier (``banded.prepare``; None
+    on the CPU)."""
     r_t: torch.Tensor
     ipx: int
     wx: int
@@ -66,18 +86,24 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 def _banded_frames_apply(data: torch.Tensor, r_t: torch.Tensor, ipx: int,
                          wx: int, p2: int, n_frames: int,
-                         op: banded.BandedOperator | None = None
-                         ) -> torch.Tensor:
-    """Windows at j*ipx of width wx times r_t [wx, p2] -> [S, F*p2].
+                         op: banded.BandedOperator | None = None,
+                         dispatch: str = 'auto', *,
+                         tier: str) -> torch.Tensor:
+    """Windows at j*ipx of width wx times r_t [wx, p2] -> [S, F*p2], at
+    ``tier``.
 
-    The K1 kernel on a CUDA tensor (reading ``op``), its plain version on
-    a CPU tensor.
+    Where the gate lets ``dispatch`` through (``precision.dispatch_for``),
+    the K1 kernel on a CUDA tensor (reading ``op``) and its plain version
+    on a CPU tensor; else the plain version on either.
     """
-    return fused.fused_resample(data, r_t, ipx=ipx, wx=wx, p2=p2,
-                                n_frames=n_frames, op=op)
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=n_frames, tier=tier)
+    if dispatch_for(dispatch, tier):
+        return fused.fused_resample(data, r_t, op=op, **kw)
+    return fused.fused_resample_reference(data, r_t, **kw)
 
 
-def _fused_banded_step(r_t, carry, x, ipx, wx, p2, op=None):
+def _fused_banded_step(r_t, carry, x, ipx, wx, p2, op=None,
+                       dispatch='auto', *, tier):
     """The streaming step of the fused banded topologies (the JAX
     package's ``_step_rational_fused`` and ``_step_decim_fused``).
 
@@ -91,7 +117,8 @@ def _fused_banded_step(r_t, carry, x, ipx, wx, p2, op=None):
     b = x.shape[1]
     n_frames = b // ipx
     data = torch.cat([carry.to(x.dtype), x], dim=1)
-    y = _banded_frames_apply(data, r_t, ipx, wx, p2, n_frames, op)
+    y = _banded_frames_apply(data, r_t, ipx, wx, p2, n_frames, op, dispatch,
+                             tier=tier)
     return data[:, b:].contiguous(), y, n_frames * p2
 
 
@@ -159,9 +186,14 @@ class EngineCore:
               up to a multiple of the operator's input period
       dtype:  compute dtype: float32 (the only type the CUDA kernel takes)
               or float64 (CPU parity runs)
-      dispatch: 'auto' only (the K1 kernel on CUDA, its plain version on
-              the CPU)
-      precision: 'auto' or 'highest' (exact float32 FMAs)
+      dispatch: 'auto' or 'pallas' (the K1 kernel on CUDA, its plain
+              version on the CPU), or 'xla' (the plain version on either);
+              'tune' is not ported
+      precision: the matmul tier of float32 steps: 'highest' (float32-
+              accurate), 'high' (three bf16 passes), 'default' (one bf16
+              pass), or 'auto' (GAR_TPU_MATMUL_PRECISION, read when the
+              engine is built; ``ops/precision.py``).  float64 is exact at
+              every tier.
       device: where the engine's tensors live; 'cuda' by default.  Without
               a GPU the default raises; pass device='cpu' to run the plain
               version on the CPU.
@@ -174,16 +206,7 @@ class EngineCore:
     def __init__(self, plan: EnginePlan, batch: int = 1, block: int = 2048,
                  dtype=torch.float32, dispatch: str = 'auto',
                  precision: str = 'auto', device='cuda'):
-        if dispatch in _UNPORTED_DISPATCH:
-            raise NotImplementedError(f"dispatch={dispatch!r} {_UNPORTED_KNOB}")
-        if dispatch != 'auto':
-            raise ValueError(f"dispatch must be 'auto', got {dispatch!r}")
-        if precision in _UNPORTED_PRECISION:
-            raise NotImplementedError(
-                f"precision={precision!r} {_UNPORTED_KNOB}")
-        if precision not in ('auto', 'highest'):
-            raise ValueError(
-                f"precision must be 'auto' or 'highest', got {precision!r}")
+        tier = _check_knobs(dispatch, precision)
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError(
@@ -199,6 +222,7 @@ class EngineCore:
         self.block = block
         self.dispatch = dispatch
         self.precision = precision
+        self._tier = tier
         self._build_constants()
         self.reset()
 
@@ -216,10 +240,10 @@ class EngineCore:
             r, _, ipx, lam = _fused_rational_matrix(p)
         else:
             where = {
-                'cubic': "queue 1 item 8 (cubic stage)",
-                'dft_up': "queue 1 item 6 (dft_up)",
-                'banded': "queue 1 item 6 (banded composite)",
-                'two_stage': "queue 1 item 8 (non-exact polyphase walk)",
+                'cubic': "queue 1 item 1, the cubic topology",
+                'dft_up': "queue 1 item 1, the dft_up topology",
+                'banded': "queue 1 item 3, the banded composite",
+                'two_stage': "queue 1 item 1, the non-exact two-stage walk",
             }.get(p.kind, "queue 1")
             raise NotImplementedError(
                 f"EngineCore: topology {p.kind!r} is not ported yet "
@@ -245,7 +269,7 @@ class EngineCore:
         r_t = torch.as_tensor(np.ascontiguousarray(r.T), dtype=self.dtype,
                               device=self.device)
         self._band = Band(r_t, ipx, wx, p2, carry,
-                          banded.prepare_on_card(r_t))
+                          banded.prepare_on_card(r_t, self._tier))
 
     def _init_state(self) -> torch.Tensor:
         return torch.zeros((self.batch, self._band.carry),
@@ -254,7 +278,8 @@ class EngineCore:
     def _step(self, state, x):
         r_t, ipx, wx, p2, _, op = self._band
         return _fused_banded_step(r_t, state, x, ipx=ipx, wx=wx, p2=p2,
-                                  op=op)
+                                  op=op, dispatch=self.dispatch,
+                                  tier=self._tier)
 
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)

@@ -20,15 +20,19 @@ from __future__ import annotations
 import torch
 
 from ..ops import tmajor
+from ..ops.precision import dispatch_for
 from .plan import EnginePlan
 from .streaming import EngineCore, _ceil_div, _torch_dtype
 
 
-def _step_banded_tmajor(r, carry, x, ipx, wx, p2, op=None):
+def _step_banded_tmajor(r, carry, x, ipx, wx, p2, op=None, dispatch='auto',
+                        *, tier):
     """Time-major twin of the fused banded step: [C+B, S] rows -> frames.
 
     ``r`` [P2, Wx] (not transposed: it is the left operand here), ``op``
-    its prepared form on the card (``banded.prepare(r.T)``);
+    its prepared form on the card (``banded.prepare(r.T, tier)``); the
+    step runs K2 where the gate lets ``dispatch`` through
+    (``precision.dispatch_for``), else K2's plain version, at ``tier``;
     ``carry`` [C, S]; ``x`` [B, S] with B % ipx == 0.  Window j reads rows
     [carry ++ x][j*ipx : j*ipx + wx], the same canonical grid as the
     stream-major step.  Emits exactly (B/ipx)*P2 rows; the new carry is
@@ -37,8 +41,11 @@ def _step_banded_tmajor(r, carry, x, ipx, wx, p2, op=None):
     b = x.shape[0]
     n_frames = b // ipx
     data = torch.cat([carry.to(x.dtype), x], dim=0)
-    y = tmajor.fused_resample_tmajor(data, r, ipx=ipx, wx=wx, p2=p2,
-                                     n_frames=n_frames, op=op)
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=n_frames, tier=tier)
+    if dispatch_for(dispatch, tier):
+        y = tmajor.fused_resample_tmajor(data, r, op=op, **kw)
+    else:
+        y = tmajor.fused_resample_tmajor_reference(data, r, **kw)
     return data[b:], y, n_frames * p2
 
 
@@ -57,6 +64,8 @@ class TimeMajorEngine:
     fused banded steps and raise; so do the banded composite and the
     FFT-routed decimation, which are not ported yet.  ``device`` is
     'cuda' by default (K2); ``device='cpu'`` runs K2's plain version.
+    ``dispatch`` and ``precision`` are ``EngineCore``'s: the same gate and
+    the same tier, so the output equals ``EngineCore``'s.
     """
 
     def __init__(self, plan: EnginePlan, batch: int = 1, block: int = 2048,
@@ -70,7 +79,7 @@ class TimeMajorEngine:
         if plan.kind == 'banded':
             raise NotImplementedError(
                 "TimeMajorEngine: banded composites are not ported yet "
-                "(ROADMAP.md, queue 1 item 6)")
+                "(ROADMAP.md, queue 1 item 3, the banded composite)")
         # Borrow EngineCore's constants; it raises for what the port does
         # not run (FFT-routed decimation, strict-antialias plans, knobs).
         eng = EngineCore(plan, batch=batch, block=block, dtype=dtype,
@@ -81,6 +90,9 @@ class TimeMajorEngine:
         self.dtype = _torch_dtype(dtype)
         self.device = eng.device
         self.block = eng.block
+        self.dispatch = eng.dispatch
+        self.precision = eng.precision
+        self._tier = eng._tier
         (r_t, self._ipx, self._wx, self._p2, self._carry_len,
          self._op) = eng._band
         self._r = r_t.t().contiguous()          # [P2, Wx], left operand
@@ -112,7 +124,8 @@ class TimeMajorEngine:
     def _run(self, xt: torch.Tensor, limit: int | None) -> torch.Tensor:
         self._carry, y, n_out = _step_banded_tmajor(
             self._r, self._carry, xt, ipx=self._ipx, wx=self._wx,
-            p2=self._p2, op=self._op)
+            p2=self._p2, op=self._op, dispatch=self.dispatch,
+            tier=self._tier)
         start = 0
         if self._core_emitted < self._drop:
             start = min(self._drop - self._core_emitted, n_out)

@@ -12,13 +12,19 @@ and its interleaved form for the polyphase upsampler.  Two lowerings:
   against a banded [W, P*F] matrix (``band_matrix``), which is exactly the
   fused-resampling structure, so on the card it is one launch of the K1
   kernel (``ops/fused.py``) with P = 128, as the JAX package's TPU path
-  runs its Pallas kernel.  CUDA tensors take it.
+  runs its Pallas kernel (inside ``precision.force_xla``, K1's plain
+  version instead).  CUDA tensors take it.
 - ``frames``: windows as an ``unfold`` view, then one ``einsum``.  CPU
   tensors take it, as the JAX package does on its CPU backend.
 
-The JAX package's ``set_conv_impl`` override and its ``xla`` lowering have
-no counterpart: the tensor's device picks the lowering.  Only the exact
-matmul tier runs in this port: ``precision`` is 'auto' or 'highest'.
+``precision`` is the matmul tier of either lowering (one of
+``precision.PRECISION_MODES``; 'auto' reads the process-wide tier), which
+the two entry points resolve once: the banded lowering's operator is
+prepared at it, the frames lowering forms its products with
+``precision.tiered_matmul``.  The helpers below them take the resolved
+tier.  The JAX package's
+``set_conv_impl`` override and its ``xla`` lowering have no counterpart:
+the tensor's device picks the lowering.
 """
 
 from __future__ import annotations
@@ -28,21 +34,19 @@ from typing import NamedTuple
 import torch
 
 from . import banded, fused
+from .precision import (PRECISION_MODES, check_tier, dispatch_allowed,
+                        dot_precision, tiered_matmul)
 
 #: outputs per frame of the banded lowering on the card
 BAND_PERIOD = 128
 
-_UNPORTED_PRECISION = ('high', 'default')
 
-
-def _check_precision(precision: str) -> None:
-    if precision in _UNPORTED_PRECISION:
-        raise NotImplementedError(
-            f"precision={precision!r} is not ported yet (ROADMAP.md, "
-            "queue 2 item 4: the precision tiers and the dispatch gate)")
-    if precision not in ('auto', 'highest'):
-        raise ValueError(
-            f"precision must be 'auto' or 'highest', got {precision!r}")
+def _tier(precision: str) -> str:
+    """The tier of ``precision``, one of PRECISION_MODES."""
+    if precision not in PRECISION_MODES:
+        raise ValueError(f"precision must be one of {PRECISION_MODES}, got "
+                         f"{precision!r}")
+    return dot_precision(precision)
 
 
 def band_matrix(kernels: torch.Tensor, p: int, stride: int,
@@ -66,7 +70,7 @@ def band_matrix(kernels: torch.Tensor, p: int, stride: int,
 class ConvBand(NamedTuple):
     """The banded lowering's operator for inputs of one length: R_t
     [W, p*F] (``band_matrix``), its period p, and on the card R_t as K1
-    reads it (``banded.prepare``; None elsewhere)."""
+    reads it at the call's tier (``banded.prepare``; None elsewhere)."""
     r_t: torch.Tensor
     p: int
     op: banded.BandedOperator | None
@@ -78,39 +82,43 @@ def _band_period(n: int, t: int, stride: int) -> int:
 
 
 def band_operator(kernels: torch.Tensor, n: int, stride: int,
-                  dtype: torch.dtype, device) -> ConvBand:
-    """The banded lowering's operator for n-sample inputs, built and
-    prepared once; callers that apply one convolution to many inputs of
-    a length (the one-shot DFT prestage) build it ahead and pass it as
-    ``band``."""
+                  dtype: torch.dtype, device, tier: str) -> ConvBand:
+    """The banded lowering's operator for n-sample inputs at the resolved
+    ``tier``,
+    built and prepared once; callers that apply one convolution to many
+    inputs of a length (the one-shot DFT prestage) build it ahead and pass
+    it as ``band``."""
     p = _band_period(n, kernels.shape[1], stride)
     r_t, _ = band_matrix(kernels, p, stride, dtype, device)
-    return ConvBand(r_t, p, banded.prepare_on_card(r_t))
+    return ConvBand(r_t, p, banded.prepare_on_card(r_t, tier))
 
 
-def _conv_frames(x: torch.Tensor, kernels: torch.Tensor,
-                 stride: int) -> torch.Tensor:
-    """Frames lowering: [S, n] -> [S, F, n_out]."""
+def _conv_frames(x: torch.Tensor, kernels: torch.Tensor, stride: int,
+                 tier: str) -> torch.Tensor:
+    """Frames lowering: [S, n] -> [S, F, n_out], at ``tier``."""
     t = kernels.shape[1]
     windows = x.unfold(1, t, stride)                     # [S, n_out, T]
-    return torch.einsum('sct,ft->sfc', windows, kernels.to(x.dtype))
+    return tiered_matmul(windows, kernels.to(x.dtype), tier,
+                         lambda a, b: torch.einsum('sct,ft->sfc', a, b))
 
 
 def _conv_banded(x: torch.Tensor, kernels: torch.Tensor, stride: int,
-                 interleaved: bool = False,
-                 band: ConvBand | None = None) -> torch.Tensor:
-    """Banded lowering (see the module docstring): one K1 call.
+                 interleaved: bool = False, band: ConvBand | None = None, *,
+                 tier: str) -> torch.Tensor:
+    """Banded lowering (see the module docstring): one K1 call at the
+    resolved ``tier``.
 
     With ``interleaved`` the result is the flat [S, n_out*F] stream
     y[s, i*F + ff] (the polyphase-upsampling order), the band's natural
     output layout.  ``band`` is :func:`band_operator` for this input's
-    length; without it the call builds it.
+    length and tier; without it the call builds it.
     """
     s, n = x.shape
     f, t = kernels.shape
     n_out = (n - t) // stride + 1
+    check_tier(tier)
     if band is None:
-        band = band_operator(kernels, n, stride, x.dtype, x.device)
+        band = band_operator(kernels, n, stride, x.dtype, x.device, tier)
     p = band.p
     if p != _band_period(n, t, stride):
         raise ValueError(f"_conv_banded: band was built for period {p}, "
@@ -122,8 +130,11 @@ def _conv_banded(x: torch.Tensor, kernels: torch.Tensor, stride: int,
     need = (nf - 1) * ipx + w
     if n < need:
         x = torch.cat([x, x.new_zeros((s, need - n))], dim=1)
-    y3 = fused.fused_resample(x.contiguous(), band.r_t, ipx=ipx, wx=w,
-                              p2=p2, n_frames=nf, op=band.op)
+    kw = dict(ipx=ipx, wx=w, p2=p2, n_frames=nf, tier=tier)
+    if dispatch_allowed(tier):
+        y3 = fused.fused_resample(x.contiguous(), band.r_t, op=band.op, **kw)
+    else:
+        y3 = fused.fused_resample_reference(x, band.r_t, **kw)
     # y3: [S, nf*p*F]
     if interleaved:
         # y3[s, k*p*F + ii*F + ff] = filter ff at output k*p + ii: already
@@ -139,12 +150,13 @@ def conv1d_poly(x: torch.Tensor, kernels: torch.Tensor, stride: int = 1,
 
     ``kernels`` rows are tap-reversed filters (design-time convention), so
     this correlation implements the reference's convolution direction.
-    The K1 kernel on a CUDA tensor, the frames lowering on a CPU tensor.
+    The K1 kernel on a CUDA tensor, the frames lowering on a CPU tensor,
+    at the tier of ``precision``.
     """
-    _check_precision(precision)
+    tier = _tier(precision)
     if x.device.type == "cuda":
-        return _conv_banded(x, kernels, stride)
-    return _conv_frames(x, kernels, stride)
+        return _conv_banded(x, kernels, stride, tier=tier)
+    return _conv_frames(x, kernels, stride, tier)
 
 
 def conv1d_poly_interleaved(x: torch.Tensor, kernels: torch.Tensor,
@@ -154,11 +166,12 @@ def conv1d_poly_interleaved(x: torch.Tensor, kernels: torch.Tensor,
 
     The polyphase-upsampled stream in its natural interleaved order.  The
     banded lowering emits this layout directly (on the card, reading
-    ``band`` where given); the frames lowering transposes its
-    [S, F, n_out] output.
+    ``band`` where given, prepared at the tier of ``precision``); the
+    frames lowering transposes its [S, F, n_out] output.
     """
-    _check_precision(precision)
+    tier = _tier(precision)
     if x.device.type == "cuda":
-        return _conv_banded(x, kernels, 1, interleaved=True, band=band)
-    out = _conv_frames(x, kernels, 1)                    # [S, F, n_out]
+        return _conv_banded(x, kernels, 1, interleaved=True, band=band,
+                            tier=tier)
+    out = _conv_frames(x, kernels, 1, tier)              # [S, F, n_out]
     return out.transpose(1, 2).reshape(x.shape[0], -1)

@@ -24,9 +24,15 @@
 // MB: 0.0106 ms as FMAs, 0.0043 ms as three TF32 passes, bound by the
 // operations.
 //
+// At the bf16 tiers (ops/precision.py) the same operations are three bf16
+// passes ('high') or one ('default') at 989 TFLOP/s, and R's limbs are 2
+// bytes each: at both shapes the bytes then bind (chip_smoke.py prints
+// each bound).
+//
 // Design, for those bounds (banded_mma.cuh holds the shared part):
 // three TF32 passes on the tensor cores (wgmma, float32 accumulation)
-// instead of float32 FMAs, at float32 accuracy; each block walks only the
+// instead of float32 FMAs, at float32 accuracy, or the tier's bf16
+// passes, one k16 wgmma a stage; each block walks only the
 // band of R's non-zero taps of its 80 output columns (R is 57% non-zero at
 // 44.1k->48k and 47% at 48k->16k), each 8-column block of B zero outside
 // its own band; a four-stage cp.async ring of 2 k-steps.  Block shape from
@@ -47,7 +53,7 @@ namespace {
 
 using namespace banded;
 
-template <int WG>
+template <int WG, int T>
 __global__ void __launch_bounds__(Tile<WG>::kThreads,
                                   Tile<WG>::kBlocksPerSM)
 fused_resample_kernel(const float* __restrict__ data, long long ld,
@@ -106,8 +112,8 @@ fused_resample_kernel(const float* __restrict__ data, long long ld,
     };
 
     Acc acc;
-    tile_product<WG>(afrag, load_a, packed, bands, (wx + 7) / 8,
-                     (p2 + 7) / 8, blockIdx.y, rank, split, smem, acc);
+    tile_product<WG, T>(afrag, load_a, packed, bands, (wx + 7) / 8,
+                        (p2 + 7) / 8, blockIdx.y, rank, split, smem, acc);
 
     const int n0 = blockIdx.y * kBN;
     epilogue<WG>(smem, acc, split, true, [&](int r, int c, float v) {
@@ -117,42 +123,67 @@ fused_resample_kernel(const float* __restrict__ data, long long ld,
     });
 }
 
-// Devices that allowed each block shape's ring memory (short, tall).
-bool k1_smem_allowed[2][64];
+// Devices that allowed each variant's ring memory ([tier][short, tall]).
+bool k1_smem_allowed[3][2][64];
 
-template <int WG, class... Args>
+template <int WG, int T, class... Args>
 int launch_k1(long long n_rows, int p2, int split, void* stream,
               Args... args)
 {
     constexpr int kBM = Tile<WG>::kBM;
-    return (int)launch<WG>(fused_resample_kernel<WG>,
-                           k1_smem_allowed[WG == kTallWarpgroups],
+    return (int)launch<WG>(fused_resample_kernel<WG, T>,
+                           k1_smem_allowed[T][WG == kTallWarpgroups],
                            (n_rows + kBM - 1) / kBM, p2, split, stream,
                            args...);
+}
+
+// The block shape from the operator's split: tall where one block walks
+// a band, short in clusters.
+template <int T, class... Args>
+int launch_tier(long long n_rows, int p2, int split, void* stream,
+                Args... args)
+{
+    if (split == 1)
+        return launch_k1<kTallWarpgroups, T>(n_rows, p2, split, stream,
+                                             args...);
+    return launch_k1<kShortWarpgroups, T>(n_rows, p2, split, stream,
+                                          args...);
 }
 
 }  // namespace
 
 // y [S*n_frames, P2] (row-major, i.e. [S, n_frames*P2]) from data
 // [S, >= (n_frames-1)*ipx + wx] with row stride ld, and R prepared by
-// ops/banded.py (packed limbs, int32 band table [ceil(p2/8), 2], split);
-// all on the device.  n_rows = S*n_frames.  Launches on ``stream`` and
-// returns the cudaError_t of the launch (0 on success).
+// ops/banded.py at ``tier`` (Tier: 0 highest, 1 high, 2 default; packed
+// limbs, int32 band table [ceil(p2/8), 2], split); all on the device.
+// n_rows = S*n_frames.  Launches on ``stream`` and returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int fused_resample_launch(const float* data, long long ld,
                                      const void* packed, const int* bands,
                                      float* y, long long n_rows,
                                      int n_frames, int ipx, int wx, int p2,
-                                     int split, void* stream)
+                                     int split, int tier, void* stream)
 {
     if (n_rows <= 0 || n_frames <= 0 || ipx <= 0 || wx <= 0 || p2 <= 0
             || ld <= 0)
         return (int)cudaErrorInvalidValue;
     const int vec = (uintptr_t)data % 16 == 0 ? 1 : 0;
-    if (split == 1)
-        return launch_k1<kTallWarpgroups>(
-            n_rows, p2, split, stream, data, ld, (const float4*)packed,
-            (const int2*)bands, y, n_rows, n_frames, ipx, wx, p2, split, vec);
-    return launch_k1<kShortWarpgroups>(
-        n_rows, p2, split, stream, data, ld, (const float4*)packed,
-        (const int2*)bands, y, n_rows, n_frames, ipx, wx, p2, split, vec);
+    const float4* b = (const float4*)packed;
+    const int2* bt = (const int2*)bands;
+    switch (tier) {
+    case kHighest:
+        return launch_tier<kHighest>(n_rows, p2, split, stream, data, ld, b,
+                                     bt, y, n_rows, n_frames, ipx, wx, p2,
+                                     split, vec);
+    case kHigh:
+        return launch_tier<kHigh>(n_rows, p2, split, stream, data, ld, b, bt,
+                                  y, n_rows, n_frames, ipx, wx, p2, split,
+                                  vec);
+    case kDefault:
+        return launch_tier<kDefault>(n_rows, p2, split, stream, data, ld, b,
+                                     bt, y, n_rows, n_frames, ipx, wx, p2,
+                                     split, vec);
+    default:
+        return (int)cudaErrorInvalidValue;
+    }
 }

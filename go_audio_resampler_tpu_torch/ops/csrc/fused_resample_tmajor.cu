@@ -22,7 +22,8 @@
 // 48k->16k HIGH, 256 streams x 2 frames: 0.0106 ms and 0.0043 ms, bound by
 // the operations.
 //
-// Design, for those bounds: K1's tile product, the same 3xTF32 wgmma over
+// Design, for those bounds: K1's tile product at the same tier (3xTF32,
+// or bf16 passes at 'high' and 'default'), the same wgmma over
 // the band of R's non-zero taps of 80 output columns, with the same block
 // shapes, the same cluster split of long bands and the same four-stage
 // cp.async ring.  A block owns 256 or 128 streams of one frame.  The slab
@@ -42,7 +43,7 @@ namespace {
 
 using namespace banded;
 
-template <int WG>
+template <int WG, int T>
 __global__ void __launch_bounds__(Tile<WG>::kThreads,
                                   Tile<WG>::kBlocksPerSM)
 fused_resample_tmajor_kernel(const float* __restrict__ xt, long long ld,
@@ -87,8 +88,9 @@ fused_resample_tmajor_kernel(const float* __restrict__ xt, long long ld,
     };
 
     Acc acc;
-    tile_product<WG>(TapMajorA<WG>{}, load_a, packed, bands, (wx + 7) / 8,
-                     (p2 + 7) / 8, blockIdx.y, rank, split, smem, acc);
+    tile_product<WG, T>(TapMajorA<WG>{}, load_a, packed, bands,
+                        (wx + 7) / 8, (p2 + 7) / 8, blockIdx.y, rank, split,
+                        smem, acc);
 
     const int n0 = blockIdx.y * kBN;
     epilogue<WG>(smem, acc, split, false, [&](int r, int c, float v) {
@@ -97,44 +99,67 @@ fused_resample_tmajor_kernel(const float* __restrict__ xt, long long ld,
     });
 }
 
-// Devices that allowed each block shape's ring memory (short, tall).
-bool k2_smem_allowed[2][64];
+// Devices that allowed each variant's ring memory ([tier][short, tall]).
+bool k2_smem_allowed[3][2][64];
 
-template <int WG, class... Args>
+template <int WG, int T, class... Args>
 int launch_k2(long long n_frames, int n_streams, int p2, int split,
               void* stream, Args... args)
 {
     constexpr int kBM = Tile<WG>::kBM;
-    return (int)launch<WG>(fused_resample_tmajor_kernel<WG>,
-                           k2_smem_allowed[WG == kTallWarpgroups],
+    return (int)launch<WG>(fused_resample_tmajor_kernel<WG, T>,
+                           k2_smem_allowed[T][WG == kTallWarpgroups],
                            n_frames * ((n_streams + kBM - 1) / kBM), p2,
                            split, stream, args...);
+}
+
+// The block shape from the operator's split, as K1 chooses it.
+template <int T, class... Args>
+int launch_tier(long long n_frames, int n_streams, int p2, int split,
+                void* stream, Args... args)
+{
+    if (split == 1)
+        return launch_k2<kTallWarpgroups, T>(n_frames, n_streams, p2, split,
+                                             stream, args...);
+    return launch_k2<kShortWarpgroups, T>(n_frames, n_streams, p2, split,
+                                          stream, args...);
 }
 
 }  // namespace
 
 // yT [n_frames*P2, S] (row-major) from xT [>= (n_frames-1)*ipx + wx, S]
-// with row stride ld, and R prepared by ops/banded.py (packed limbs, int32
-// band table [ceil(p2/8), 2], split); all on the device.  Launches on
-// ``stream`` and returns the cudaError_t of the launch (0 on success).
+// with row stride ld, and R prepared by ops/banded.py at ``tier`` (0
+// highest, 1 high, 2 default; packed limbs, int32 band table [ceil(p2/8),
+// 2], split); all on the device.  Launches on ``stream`` and returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int fused_resample_tmajor_launch(const float* xt, long long ld,
                                             const void* packed,
                                             const int* bands, float* yt,
                                             long long n_frames,
                                             int n_streams, int ipx, int wx,
-                                            int p2, int split, void* stream)
+                                            int p2, int split, int tier,
+                                            void* stream)
 {
     if (n_frames <= 0 || n_streams <= 0 || ld < n_streams || ipx <= 0
             || wx <= 0 || p2 <= 0)
         return (int)cudaErrorInvalidValue;
     const int vec = ((uintptr_t)xt % 16 == 0 && ld % 4 == 0) ? 1 : 0;
-    if (split == 1)
-        return launch_k2<kTallWarpgroups>(
-            n_frames, n_streams, p2, split, stream, xt, ld,
-            (const float4*)packed, (const int2*)bands, yt, n_streams, ipx,
-            wx, p2, split, vec);
-    return launch_k2<kShortWarpgroups>(
-        n_frames, n_streams, p2, split, stream, xt, ld,
-        (const float4*)packed, (const int2*)bands, yt, n_streams, ipx, wx,
-        p2, split, vec);
+    const float4* b = (const float4*)packed;
+    const int2* bt = (const int2*)bands;
+    switch (tier) {
+    case kHighest:
+        return launch_tier<kHighest>(n_frames, n_streams, p2, split, stream,
+                                     xt, ld, b, bt, yt, n_streams, ipx, wx,
+                                     p2, split, vec);
+    case kHigh:
+        return launch_tier<kHigh>(n_frames, n_streams, p2, split, stream, xt,
+                                  ld, b, bt, yt, n_streams, ipx, wx, p2,
+                                  split, vec);
+    case kDefault:
+        return launch_tier<kDefault>(n_frames, n_streams, p2, split, stream,
+                                     xt, ld, b, bt, yt, n_streams, ipx, wx,
+                                     p2, split, vec);
+    default:
+        return (int)cudaErrorInvalidValue;
+    }
 }

@@ -63,6 +63,12 @@
 //   width alone: its bits do not depend on S, on the tiles of a launch or
 //   on the grid.  A stage's products are issued before the next stage is
 //   copied and converted, and waited for after.
+// - At the bf16 tiers (ops/precision.py; banded_mma.cuh) M splits to bf16
+//   limbs in registers and the window's limbs are written as bf16 core
+//   matrices of 8 streams x 8 taps: a one-warpgroup stage is one
+//   wgmma.m64n64k16.bf16 step, a two-warpgroup stage two; three products a
+//   step at 'high', one at 'default'.  M's bytes are read as at 'highest',
+//   so the bound stays M's bytes.
 // - Each thread stores its accumulators to y[s, t*tile + p] directly: 8
 //   consecutive p of 4 streams a warp store, whole 32-byte sectors.
 // Measured on an H100 (PERF.md): 0.114 ms at the general shape and 0.044
@@ -131,6 +137,24 @@ __device__ __forceinline__ void wgmma_n64(Acc& d, const uint32_t (&a)[4],
           "r"(accumulate)
         : "memory");
 }
+
+// The same product over 16 taps, bf16 in (two a register, m16n8k16
+// fragment layout), B K-major (not transposed).
+__device__ __forceinline__ void wgmma_n64_bf16(Acc& d, const uint32_t (&a)[4],
+                                               uint64_t desc, int accumulate)
+{
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+        "%27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+        "}\n"
+        : K3_D8(0), K3_D8(8), K3_D8(16), K3_D8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(accumulate)
+        : "memory");
+}
 #undef K3_D8
 
 __device__ __forceinline__ void wgmma_commit()
@@ -189,7 +213,7 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
                     "r"(banded::smem_addr(bar)) : "memory");
 }
 
-template <int WG, int KS>
+template <int WG, int KS, int T>
 __global__ void __launch_bounds__(Shape<WG, KS>::kThreads,
                                   Shape<WG, KS>::kBlocksPerSM)
 general_resample_kernel(const float* __restrict__ x, long long ld,
@@ -335,34 +359,68 @@ general_resample_kernel(const float* __restrict__ x, long long ld,
         mbar_arrive_cp_async(bar);
     };
 
-    // The window's taps of stage st as B: TF32 hi and lo limbs, for each
-    // k-step kk and limb L the kSB n8 blocks of 8 streams x 2 tap halves x
-    // 4 taps ([kk][L][n8 block][half][stream][tap]); a thread converts 4
-    // taps q of stream xs at a time.
+    // The window's taps of stage st as B.  kHighest: TF32 hi and lo limbs,
+    // for each k-step kk and limb L the kSB n8 blocks of 8 streams x 2 tap
+    // halves x 4 taps ([kk][L][n8 block][half][stream][tap]); a thread
+    // converts 4 taps q of stream xs at a time.  bf16 tiers: for each k16
+    // step j the same layout of 8 taps a half ([j][L][n8 block][half]
+    // [stream][tap]; no lo limb at kDefault); a thread converts 8 taps q.
     auto convert = [&](int st, int slot) {
         const float* xw = ring_at(slot) + kMFloats + xs * kXPitch;
         const int k0 = (st_begin + st) * kKS * 8;
         const long long a = start + k0;
         const int skew = window_is_bulk(a) ? (int)(a & 3) : 0;
         uint4* b4 = reinterpret_cast<uint4*>(b_at(st));
-        for (int q = xc; q < kBK / 4; q += kThreads / kBS) {
-            uint32_t h[4], l[4];
-            const float4 u = reinterpret_cast<const float4*>(xw)[q];
-            const float4 w = reinterpret_cast<const float4*>(xw)[q + 1];
-            const float e[8] = {u.x, u.y, u.z, u.w, w.x, w.y, w.z, w.w};
-            float v[4];
-            if (skew == 0) { v[0] = e[0]; v[1] = e[1]; v[2] = e[2]; v[3] = e[3]; }
-            else if (skew == 1) { v[0] = e[1]; v[1] = e[2]; v[2] = e[3]; v[3] = e[4]; }
-            else if (skew == 2) { v[0] = e[2]; v[1] = e[3]; v[2] = e[4]; v[3] = e[5]; }
-            else { v[0] = e[3]; v[1] = e[4]; v[2] = e[5]; v[3] = e[6]; }
+        if constexpr (T != banded::kHighest) {
+            const float4* w4 = reinterpret_cast<const float4*>(xw);
+            for (int q = xc; q < kBK / 8; q += kThreads / kBS) {
+                const float4 u = w4[2 * q], w = w4[2 * q + 1];
+                const float4 z = w4[2 * q + 2];
+                const float e[12] = {u.x, u.y, u.z, u.w, w.x, w.y, w.z, w.w,
+                                     z.x, z.y, z.z, z.w};
+                float v[8];
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-                banded::split_tf32(k0 + 4 * q + j < w_band ? v[j] : 0.0f,
-                                   h[j], l[j]);
-            const int at = (q / 2 * 2 * kSB + xs / 8) * 16 + q % 2 * 8
-                + xs % 8;
-            b4[at] = make_uint4(h[0], h[1], h[2], h[3]);
-            b4[at + kSB * 16] = make_uint4(l[0], l[1], l[2], l[3]);
+                for (int c = 0; c < 8; ++c) {
+                    const float at = skew == 0 ? e[c] : skew == 1 ? e[c + 1]
+                        : skew == 2 ? e[c + 2] : e[c + 3];
+                    v[c] = k0 + 8 * q + c < w_band ? at : 0.0f;
+                }
+                uint32_t h[4], l[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    banded::split_bf16(v[2 * j], v[2 * j + 1], h[j], l[j]);
+                const int at = (q / 2 * 2 * kSB + xs / 8) * 16 + q % 2 * 8
+                    + xs % 8;
+                b4[at] = make_uint4(h[0], h[1], h[2], h[3]);
+                if constexpr (T == banded::kHigh)
+                    b4[at + kSB * 16] = make_uint4(l[0], l[1], l[2], l[3]);
+            }
+        } else {
+            for (int q = xc; q < kBK / 4; q += kThreads / kBS) {
+                uint32_t h[4], l[4];
+                const float4 u = reinterpret_cast<const float4*>(xw)[q];
+                const float4 w = reinterpret_cast<const float4*>(xw)[q + 1];
+                const float e[8] = {u.x, u.y, u.z, u.w,
+                                    w.x, w.y, w.z, w.w};
+                float v[4];
+                if (skew == 0) {
+                    v[0] = e[0]; v[1] = e[1]; v[2] = e[2]; v[3] = e[3];
+                } else if (skew == 1) {
+                    v[0] = e[1]; v[1] = e[2]; v[2] = e[3]; v[3] = e[4];
+                } else if (skew == 2) {
+                    v[0] = e[2]; v[1] = e[3]; v[2] = e[4]; v[3] = e[5];
+                } else {
+                    v[0] = e[3]; v[1] = e[4]; v[2] = e[5]; v[3] = e[6];
+                }
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    banded::split_tf32(
+                        k0 + 4 * q + j < w_band ? v[j] : 0.0f, h[j], l[j]);
+                const int at = (q / 2 * 2 * kSB + xs / 8) * 16 + q % 2 * 8
+                    + xs % 8;
+                b4[at] = make_uint4(h[0], h[1], h[2], h[3]);
+                b4[at + kSB * 16] = make_uint4(l[0], l[1], l[2], l[3]);
+            }
         }
     };
 
@@ -376,7 +434,9 @@ general_resample_kernel(const float* __restrict__ x, long long ld,
     const int row = wg * 64 + warp * 16 + g;   // this thread's column p
     // The bands of its two columns' 8-column blocks (row, row + 8).
     const int2 a_band0 = sband[row / 8], a_band1 = sband[row / 8 + 1];
-    uint32_t ahi[kKS][4], alo[kKS][4];
+    // A's register steps a stage: kKS TF32 k8 steps, or kKS / 2 bf16 k16.
+    constexpr int kRegSteps = T == banded::kHighest ? kKS : kKS / 2;
+    uint32_t ahi[kRegSteps][4], alo[kRegSteps][4];
 
     // This warpgroup's k-steps of stage st (M at ring slot `slot`): A's
     // fragments split into limbs (zero outside their 8 columns' band),
@@ -388,35 +448,89 @@ general_resample_kernel(const float* __restrict__ x, long long ld,
             return false;
         const float* bs = b_at(st);
         const float* ms = ring_at(slot);
+        if constexpr (T != banded::kHighest) {
+            // Step j: 8-tap k-steps u0 and u0 + 1; registers 0..3 are
+            // columns row, row + 8 at taps 2tq, 2tq + 1 (u0), then the
+            // same at taps 2tq + 8, 2tq + 9 (u0 + 1).
 #pragma unroll
-        for (int kk = 0; kk < kKS; ++kk) {
-            const bool in0 = inside(a_band0, ks0 + kk);
-            const bool in1 = inside(a_band1, ks0 + kk);
-            const float* r = ms + (kk * 8 + tq) * kMPitch + row;
-            banded::split_tf32(in0 ? r[0] : 0.0f, ahi[kk][0], alo[kk][0]);
-            banded::split_tf32(in1 ? r[8] : 0.0f, ahi[kk][1], alo[kk][1]);
-            banded::split_tf32(in0 ? r[4 * kMPitch] : 0.0f, ahi[kk][2],
-                               alo[kk][2]);
-            banded::split_tf32(in1 ? r[4 * kMPitch + 8] : 0.0f, ahi[kk][3],
-                               alo[kk][3]);
-        }
-#pragma unroll
-        for (int i = 0; i < kBS / 2; ++i)
-            banded::pin(part[i]);
-        banded::wgmma_fence();
-        int accumulate = 0;
-#pragma unroll
-        for (int kk = 0; kk < kKS; ++kk) {
-            if (inside(mine, ks0 + kk)) {
-                const float* bhi = bs + kk * 2 * kLimbFloats;
-                const float* blo = bhi + kLimbFloats;
-                wgmma_n64(part, alo[kk], banded::b_desc(bhi), accumulate);
-                wgmma_n64(part, ahi[kk], banded::b_desc(blo), 1);
-                wgmma_n64(part, ahi[kk], banded::b_desc(bhi), 1);
-                accumulate = 1;
+            for (int j = 0; j < kRegSteps; ++j) {
+                const int u0 = ks0 + 2 * j;
+                const bool in00 = inside(a_band0, u0);
+                const bool in10 = inside(a_band1, u0);
+                const bool in01 = inside(a_band0, u0 + 1);
+                const bool in11 = inside(a_band1, u0 + 1);
+                const float* r = ms + (j * 16 + 2 * tq) * kMPitch + row;
+                banded::split_bf16(in00 ? r[0] : 0.0f,
+                                   in00 ? r[kMPitch] : 0.0f, ahi[j][0],
+                                   alo[j][0]);
+                banded::split_bf16(in10 ? r[8] : 0.0f,
+                                   in10 ? r[kMPitch + 8] : 0.0f, ahi[j][1],
+                                   alo[j][1]);
+                banded::split_bf16(in01 ? r[8 * kMPitch] : 0.0f,
+                                   in01 ? r[9 * kMPitch] : 0.0f, ahi[j][2],
+                                   alo[j][2]);
+                banded::split_bf16(in11 ? r[8 * kMPitch + 8] : 0.0f,
+                                   in11 ? r[9 * kMPitch + 8] : 0.0f,
+                                   ahi[j][3], alo[j][3]);
             }
+#pragma unroll
+            for (int i = 0; i < kBS / 2; ++i)
+                banded::pin(part[i]);
+            banded::wgmma_fence();
+            int accumulate = 0;
+#pragma unroll
+            for (int j = 0; j < kRegSteps; ++j) {
+                const int u0 = ks0 + 2 * j;
+                if (inside(mine, u0) || inside(mine, u0 + 1)) {
+                    const float* bhi = bs + j * 2 * kLimbFloats;
+                    const float* blo = bhi + kLimbFloats;
+                    if constexpr (T == banded::kHigh) {
+                        wgmma_n64_bf16(part, alo[j], banded::b_desc(bhi),
+                                       accumulate);
+                        wgmma_n64_bf16(part, ahi[j], banded::b_desc(blo), 1);
+                        wgmma_n64_bf16(part, ahi[j], banded::b_desc(bhi), 1);
+                    } else {
+                        wgmma_n64_bf16(part, ahi[j], banded::b_desc(bhi),
+                                       accumulate);
+                    }
+                    accumulate = 1;
+                }
+            }
+            wgmma_commit();
+        } else {
+#pragma unroll
+            for (int kk = 0; kk < kKS; ++kk) {
+                const bool in0 = inside(a_band0, ks0 + kk);
+                const bool in1 = inside(a_band1, ks0 + kk);
+                const float* r = ms + (kk * 8 + tq) * kMPitch + row;
+                banded::split_tf32(in0 ? r[0] : 0.0f, ahi[kk][0],
+                                   alo[kk][0]);
+                banded::split_tf32(in1 ? r[8] : 0.0f, ahi[kk][1],
+                                   alo[kk][1]);
+                banded::split_tf32(in0 ? r[4 * kMPitch] : 0.0f, ahi[kk][2],
+                                   alo[kk][2]);
+                banded::split_tf32(in1 ? r[4 * kMPitch + 8] : 0.0f,
+                                   ahi[kk][3], alo[kk][3]);
+            }
+#pragma unroll
+            for (int i = 0; i < kBS / 2; ++i)
+                banded::pin(part[i]);
+            banded::wgmma_fence();
+            int accumulate = 0;
+#pragma unroll
+            for (int kk = 0; kk < kKS; ++kk) {
+                if (inside(mine, ks0 + kk)) {
+                    const float* bhi = bs + kk * 2 * kLimbFloats;
+                    const float* blo = bhi + kLimbFloats;
+                    wgmma_n64(part, alo[kk], banded::b_desc(bhi),
+                              accumulate);
+                    wgmma_n64(part, ahi[kk], banded::b_desc(blo), 1);
+                    wgmma_n64(part, ahi[kk], banded::b_desc(bhi), 1);
+                    accumulate = 1;
+                }
+            }
+            wgmma_commit();
         }
-        wgmma_commit();
         return true;
     };
 
@@ -424,11 +538,12 @@ general_resample_kernel(const float* __restrict__ x, long long ld,
     auto product_finish = [&]() {
         wgmma_wait_all();
 #pragma unroll
-        for (int kk = 0; kk < kKS; ++kk)
+        for (int kk = 0; kk < kRegSteps; ++kk)
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
                 banded::pin(ahi[kk][i]);
-                banded::pin(alo[kk][i]);
+                if constexpr (T != banded::kDefault)
+                    banded::pin(alo[kk][i]);
             }
 #pragma unroll
         for (int i = 0; i < kBS / 2; ++i) {
@@ -487,10 +602,11 @@ general_resample_kernel(const float* __restrict__ x, long long ld,
 constexpr int kStageKsteps1 = 2;
 constexpr int kStageKsteps2 = 4;
 
-// Devices that allowed each block shape's ring memory (one warpgroup, two).
-bool k3_smem_allowed[2][64];
+// Devices that allowed each variant's ring memory ([tier][one warpgroup,
+// two]).
+bool k3_smem_allowed[3][2][64];
 
-template <int WG, int KS>
+template <int WG, int KS, int T>
 int launch_k3(const float* x, long long ld, long long n, const void* starts,
               int starts_are_64bit, const float* m_t, int m_rows,
               const int* bands, float* y, long long n_tiles, int n_streams,
@@ -508,9 +624,9 @@ int launch_k3(const float* x, long long ld, long long n, const void* starts,
     cudaError_t err = cudaGetDevice(&device);
     if (err != cudaSuccess)
         return (int)err;
-    bool* allowed = k3_smem_allowed[WG - 1];
+    bool* allowed = k3_smem_allowed[T][WG - 1];
     if (device < 0 || device >= 64 || !allowed[device]) {
-        err = cudaFuncSetAttribute(general_resample_kernel<WG, KS>,
+        err = cudaFuncSetAttribute(general_resample_kernel<WG, KS, T>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    S::kSmemBytes);
         if (err != cudaSuccess)
@@ -520,12 +636,29 @@ int launch_k3(const float* x, long long ld, long long n, const void* starts,
     }
     const int vec_x = ((uintptr_t)x % 16 == 0 && ld % 4 == 0) ? 1 : 0;
     const int vec_m = ((uintptr_t)m_t % 16 == 0 && tile % 4 == 0) ? 1 : 0;
-    general_resample_kernel<WG, KS>
+    general_resample_kernel<WG, KS, T>
         <<<(unsigned)gx, S::kThreads, S::kSmemBytes, (cudaStream_t)stream>>>(
             x, ld, n, starts, starts_are_64bit, m_t, m_rows,
             (const int2*)bands, y, n_tiles * tile, n_streams, (int)n_sb,
             (int)n_cb, w_band, tile, vec_x, vec_m);
     return (int)cudaGetLastError();
+}
+
+// The block shape (1 or 2 warpgroups) at tier T.
+template <int T>
+int launch_tier(const float* x, long long ld, long long n,
+                const void* starts, int starts_are_64bit, const float* m_t,
+                int m_rows, const int* bands, float* y, long long n_tiles,
+                int n_streams, int w_band, int tile, int warpgroups,
+                void* stream)
+{
+    return warpgroups == 1
+        ? launch_k3<1, kStageKsteps1, T>(x, ld, n, starts, starts_are_64bit,
+                                         m_t, m_rows, bands, y, n_tiles,
+                                         n_streams, w_band, tile, stream)
+        : launch_k3<2, kStageKsteps2, T>(x, ld, n, starts, starts_are_64bit,
+                                         m_t, m_rows, bands, y, n_tiles,
+                                         n_streams, w_band, tile, stream);
 }
 
 }  // namespace
@@ -535,25 +668,36 @@ int launch_k3(const float* x, long long ld, long long n, const void* starts,
 // with m_rows >= w_band, and M's int32 band table [n_tiles,
 // ceil(tile/8), 2] (ops/general.py::band_table); all on the device,
 // float32 but for starts and bands.  `warpgroups` (1 or 2) is the block
-// shape chosen from M (ops/general.py::block_warpgroups).  Launches on
-// ``stream`` and returns the cudaError_t of the launch (0 on success).
+// shape chosen from M (ops/general.py::block_warpgroups); ``tier`` the
+// product's tier (0 highest, 1 high, 2 default).  Launches on ``stream``
+// and returns the cudaError_t of the launch (0 on success).
 extern "C" int general_resample_launch(const float* x, long long ld,
                                        long long n, const void* starts,
                                        int starts_are_64bit, const float* m_t,
                                        int m_rows, const int* bands,
                                        float* y, long long n_tiles,
                                        int n_streams, int w_band, int tile,
-                                       int warpgroups, void* stream)
+                                       int warpgroups, int tier,
+                                       void* stream)
 {
     if (n_tiles <= 0 || n_streams <= 0 || n <= 0 || ld < n || w_band <= 0
             || m_rows < w_band || tile <= 0
             || (warpgroups != 1 && warpgroups != 2))
         return (int)cudaErrorInvalidValue;
-    return warpgroups == 1
-        ? launch_k3<1, kStageKsteps1>(x, ld, n, starts, starts_are_64bit,
-                                      m_t, m_rows, bands, y, n_tiles,
-                                      n_streams, w_band, tile, stream)
-        : launch_k3<2, kStageKsteps2>(x, ld, n, starts, starts_are_64bit,
-                                      m_t, m_rows, bands, y, n_tiles,
-                                      n_streams, w_band, tile, stream);
+    switch (tier) {
+    case banded::kHighest:
+        return launch_tier<banded::kHighest>(
+            x, ld, n, starts, starts_are_64bit, m_t, m_rows, bands, y,
+            n_tiles, n_streams, w_band, tile, warpgroups, stream);
+    case banded::kHigh:
+        return launch_tier<banded::kHigh>(
+            x, ld, n, starts, starts_are_64bit, m_t, m_rows, bands, y,
+            n_tiles, n_streams, w_band, tile, warpgroups, stream);
+    case banded::kDefault:
+        return launch_tier<banded::kDefault>(
+            x, ld, n, starts, starts_are_64bit, m_t, m_rows, bands, y,
+            n_tiles, n_streams, w_band, tile, warpgroups, stream);
+    default:
+        return (int)cudaErrorInvalidValue;
+    }
 }

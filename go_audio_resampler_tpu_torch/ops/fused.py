@@ -12,6 +12,10 @@ fallback: a CUDA tensor the kernel does not take raises.  The kernel reads
 R as ``banded.prepare`` lays it out (TF32 limbs and band table), which the
 callers build once with their operator and pass as ``op``.
 
+Both take the product's precision tier (``ops/precision.py``): the plain
+version forms its products with ``precision.tiered_matmul``, the kernel
+with the tier's tensor-core passes on R's limbs of the same tier.
+
 The TPU module's tile helpers (``frame_tile_for``, ``choose_stream_tile``,
 ``vmem_bytes``) have no counterpart: the CUDA kernel tiles the flattened
 (stream, frame) axis in blocks of 256 or 128 rows and 80 columns and
@@ -30,6 +34,7 @@ import torch
 from . import _build
 from .banded import BandedOperator, resolve
 from .frames import gather_windows
+from .precision import TIER_CODES, check_tier, tiered_matmul
 
 #: Kernel launches so far (a plain integer; callers may reset it to 0).
 launches = 0
@@ -39,8 +44,10 @@ _SOURCE = "fused_resample"
 
 def fused_resample_reference(data: torch.Tensor, r_t: torch.Tensor, *,
                              ipx: int, wx: int, p2: int,
-                             n_frames: int) -> torch.Tensor:
-    """Plain version: frames as an ``unfold`` view, then one ``matmul``.
+                             n_frames: int,
+                             tier: str) -> torch.Tensor:
+    """Plain version: frames as an ``unfold`` view, then one ``matmul``
+    at ``tier`` (``precision.tiered_matmul``).
 
     Computes in ``data``'s dtype.  On a CUDA tensor a float32 ``matmul``
     follows ``torch.backends.cuda.matmul.allow_tf32``; callers that use
@@ -50,7 +57,7 @@ def fused_resample_reference(data: torch.Tensor, r_t: torch.Tensor, *,
     if n_frames == 0:
         return data.new_zeros((s, 0))
     frames = gather_windows(data, n_frames, ipx, wx)      # [S, F, Wx]
-    y = torch.matmul(frames, r_t.to(data.dtype))           # [S, F, P2]
+    y = tiered_matmul(frames, r_t.to(data.dtype), tier)    # [S, F, P2]
     return y.reshape(s, n_frames * p2)
 
 
@@ -73,21 +80,24 @@ def _check(data, r_t, ipx, wx, p2, n_frames):
 
 def fused_resample(data: torch.Tensor, r_t: torch.Tensor, *, ipx: int,
                    wx: int, p2: int, n_frames: int,
-                   op: BandedOperator | None = None) -> torch.Tensor:
+                   op: BandedOperator | None = None,
+                   tier: str) -> torch.Tensor:
     """y [S, n_frames*p2] with y[s, m*p2 + r] = sum_w data[s, m*ipx + w] *
-    r_t[w, r].
+    r_t[w, r], at the resolved matmul tier ``tier``
+    (``precision.check_tier``).
 
     CUDA tensors go to the kernel, which takes contiguous float32 ``data``
     and ``r_t`` on one device and raises on anything else; CPU tensors get
-    :func:`fused_resample_reference`.  ``op`` is ``banded.prepare(r_t)``,
-    built once with the operator; a CUDA call requires it, the plain
-    version does not read it.
+    :func:`fused_resample_reference`.  ``op`` is ``banded.prepare(r_t,
+    tier)``, built once with the operator; a CUDA call requires it, at the
+    call's tier, and the plain version does not read it.
     """
     global launches
     _check(data, r_t, ipx, wx, p2, n_frames)
+    check_tier(tier)
     if data.device.type == "cpu" and r_t.device.type == "cpu":
         return fused_resample_reference(data, r_t, ipx=ipx, wx=wx, p2=p2,
-                                        n_frames=n_frames)
+                                        n_frames=n_frames, tier=tier)
     if data.device.type != "cuda" or r_t.device != data.device:
         raise ValueError(f"fused_resample: data on {data.device} and r_t on "
                          f"{r_t.device}; both must be on one CUDA device "
@@ -102,17 +112,17 @@ def fused_resample(data: torch.Tensor, r_t: torch.Tensor, *, ipx: int,
                     device=data.device)
     if y.numel() == 0:
         return y
-    op = resolve(op, r_t, "fused_resample")
+    op = resolve(op, r_t, "fused_resample", tier)
     fn = _launcher()
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(data.data_ptr(), data.stride(0), op.packed.data_ptr(),
                  op.bands.data_ptr(), y.data_ptr(), s * n_frames, n_frames,
-                 ipx, wx, p2, op.split, stream)
+                 ipx, wx, p2, op.split, TIER_CODES[tier], stream)
     if err:
         raise RuntimeError(f"fused_resample: kernel launch failed with CUDA "
                            f"error {err} (S={s}, n_frames={n_frames}, "
-                           f"ipx={ipx}, wx={wx}, p2={p2})")
+                           f"ipx={ipx}, wx={wx}, p2={p2}, tier={tier})")
     launches += 1
     return y
 
@@ -125,5 +135,5 @@ def _launcher():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return fn

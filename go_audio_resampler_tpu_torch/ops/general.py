@@ -21,6 +21,11 @@ table depends on M alone and is built once with it, on the host, where
 the one-shot path uploads M; a CUDA call takes it as ``bands=`` and the
 plain version ignores it.
 
+Both take the product's precision tier (``ops/precision.py``; the JAX
+kernel reads the process-wide one): the plain version forms its products
+with ``precision.tiered_matmul``, the kernel splits M and the window into
+limbs of the tier on chip, so M is prepared the same way at every tier.
+
 The TPU module's ``choose_general_tile`` and ``general_vmem_bytes`` only
 size TPU tiles to its scoped VMEM and have no counterpart.
 """
@@ -34,6 +39,7 @@ import torch
 
 from . import _build
 from .frames import gather_windows_at
+from .precision import TIER_CODES, check_tier, tiered_matmul
 
 #: Kernel launches so far (a plain integer; callers may reset it to 0).
 launches = 0
@@ -54,9 +60,11 @@ NARROW_SHARE = 0.65
 
 def general_resample_reference(x: torch.Tensor, m_t: torch.Tensor,
                                starts: torch.Tensor, *, w_band: int,
-                               tile: int) -> torch.Tensor:
+                               tile: int,
+                               tier: str) -> torch.Tensor:
     """Plain version: the clipped gather of each tile's window, then one
-    ``einsum`` (the JAX package's lowering of ``_banded_tiles_apply``).
+    ``einsum`` (the JAX package's lowering of ``_banded_tiles_apply``) at
+    ``tier`` (``precision.tiered_matmul``).
 
     A window sample outside ``x`` reads its nearest end, as the kernel
     clamps it.  Computes in ``x``'s dtype; on a CUDA tensor a float32
@@ -68,8 +76,8 @@ def general_resample_reference(x: torch.Tensor, m_t: torch.Tensor,
     if n_tiles == 0 or n == 0:
         return x.new_zeros((s, n_tiles * tile))
     frames = gather_windows_at(x, starts, w_band)        # [S, n_tiles, W]
-    y = torch.einsum('stw,twp->stp', frames,
-                     m_t[:, :w_band, :].to(x.dtype))
+    y = tiered_matmul(frames, m_t[:, :w_band, :].to(x.dtype), tier,
+                      lambda a, b: torch.einsum('stw,twp->stp', a, b))
     return y.reshape(s, n_tiles * tile)
 
 
@@ -173,9 +181,11 @@ def _check(x, m_t, starts, w_band, tile):
 def general_resample(x: torch.Tensor, m_t: torch.Tensor,
                      starts: torch.Tensor, *, w_band: int, tile: int,
                      bands: torch.Tensor | None = None,
-                     warpgroups: int = 2) -> torch.Tensor:
+                     warpgroups: int = 2,
+                     tier: str) -> torch.Tensor:
     """y [S, n_tiles*tile] with y[s, t*tile + p] =
-    sum_{w < w_band} x[s, starts[t] + w] * m_t[t, w, p].
+    sum_{w < w_band} x[s, starts[t] + w] * m_t[t, w, p], at the matmul
+    tier ``tier``, resolved (``precision.check_tier``).
 
     CUDA tensors go to the kernel, which takes contiguous float32 ``x`` and
     ``m_t``, contiguous int32 or int64 ``starts`` and M's band table
@@ -186,10 +196,11 @@ def general_resample(x: torch.Tensor, m_t: torch.Tensor,
     """
     global launches
     _check(x, m_t, starts, w_band, tile)
+    check_tier(tier)
     devices = {x.device, m_t.device, starts.device}
     if devices == {torch.device("cpu")}:
         return general_resample_reference(x, m_t, starts, w_band=w_band,
-                                          tile=tile)
+                                          tile=tile, tier=tier)
     if len(devices) != 1 or x.device.type != "cuda":
         raise ValueError(f"general_resample: x on {x.device}, m_t on "
                          f"{m_t.device}, starts on {starts.device}; all must "
@@ -219,12 +230,12 @@ def general_resample(x: torch.Tensor, m_t: torch.Tensor,
         err = fn(x.data_ptr(), x.stride(0), n, starts.data_ptr(),
                  int(starts.dtype == torch.int64), m_t.data_ptr(),
                  m_t.shape[1], bands.data_ptr(), y.data_ptr(), n_tiles, s,
-                 w_band, tile, warpgroups, stream)
+                 w_band, tile, warpgroups, TIER_CODES[tier], stream)
     if err:
         raise RuntimeError(
             f"general_resample: kernel launch failed with CUDA error {err} "
             f"(S={s}, n={n}, n_tiles={n_tiles}, w_band={w_band}, "
-            f"tile={tile})")
+            f"tile={tile}, tier={tier})")
     launches += 1
     return y
 
@@ -238,5 +249,6 @@ def _launcher():
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
     return fn

@@ -11,7 +11,8 @@ time-major kernel ``fused_resample_tmajor``:
 CUDA tensors, and computes the plain version for CPU tensors.  There is no
 fallback: a CUDA tensor the kernel does not take raises.  The kernel runs
 K1's tile product and reads R as ``banded.prepare`` lays out R_t = r.T
-(the same prepared operator serves K1 and K2), passed as ``op``.
+(the same prepared operator serves K1 and K2), passed as ``op``, at
+the product's precision tier (``ops/precision.py``), as K1 does.
 
 The TPU module's ``kf`` (frames per grid step), ``choose_tmajor_tile``,
 ``choose_tmajor_kf`` and ``tmajor_vmem_bytes`` only size TPU tiles to its
@@ -30,6 +31,7 @@ import torch
 
 from . import _build
 from .banded import BandedOperator, resolve
+from .precision import TIER_CODES, check_tier, tiered_matmul
 
 #: Kernel launches so far (a plain integer; callers may reset it to 0).
 launches = 0
@@ -39,8 +41,11 @@ _SOURCE = "fused_resample_tmajor"
 
 def fused_resample_tmajor_reference(xt: torch.Tensor, r: torch.Tensor, *,
                                     ipx: int, wx: int, p2: int,
-                                    n_frames: int) -> torch.Tensor:
-    """Plain version: frames as an ``unfold`` along time, then ``matmul``.
+                                    n_frames: int,
+                                    tier: str
+                                    ) -> torch.Tensor:
+    """Plain version: frames as an ``unfold`` along time, then ``matmul``
+    at ``tier`` (``precision.tiered_matmul``).
 
     Computes in ``xt``'s dtype.  On a CUDA tensor a float32 ``matmul``
     follows ``torch.backends.cuda.matmul.allow_tf32``; callers that use
@@ -51,7 +56,8 @@ def fused_resample_tmajor_reference(xt: torch.Tensor, r: torch.Tensor, *,
         return xt.new_zeros((0, s))
     need = (n_frames - 1) * ipx + wx
     frames = xt[:need].unfold(0, wx, ipx)                # [F, S, Wx]
-    y = torch.matmul(r.to(xt.dtype), frames.transpose(1, 2))   # [F, P2, S]
+    y = tiered_matmul(r.to(xt.dtype), frames.transpose(1, 2),
+                      tier)                                   # [F, P2, S]
     return y.reshape(n_frames * p2, s)
 
 
@@ -75,21 +81,24 @@ def _check(xt, r, ipx, wx, p2, n_frames):
 
 def fused_resample_tmajor(xt: torch.Tensor, r: torch.Tensor, *, ipx: int,
                           wx: int, p2: int, n_frames: int,
-                          op: BandedOperator | None = None) -> torch.Tensor:
+                          op: BandedOperator | None = None,
+                          tier: str) -> torch.Tensor:
     """yT [n_frames*p2, S] with yT[m*p2 + r_, s] = sum_w r[r_, w] *
-    xT[m*ipx + w, s].
+    xT[m*ipx + w, s], at the resolved matmul tier ``tier``.
 
     CUDA tensors go to the kernel, which takes contiguous float32 ``xt``
     and ``r`` on one device and raises on anything else; CPU tensors get
     :func:`fused_resample_tmajor_reference`.  ``op`` is
-    ``banded.prepare(r.T)``, built once with the operator; a CUDA call
-    requires it, the plain version does not read it.
+    ``banded.prepare(r.T, tier)``, built once with the operator; a CUDA
+    call requires it, at the call's tier, and the plain version does not
+    read it.
     """
     global launches
     _check(xt, r, ipx, wx, p2, n_frames)
+    check_tier(tier)
     if xt.device.type == "cpu" and r.device.type == "cpu":
         return fused_resample_tmajor_reference(xt, r, ipx=ipx, wx=wx, p2=p2,
-                                               n_frames=n_frames)
+                                               n_frames=n_frames, tier=tier)
     if xt.device.type != "cuda" or r.device != xt.device:
         raise ValueError(f"fused_resample_tmajor: xt on {xt.device} and r on "
                          f"{r.device}; both must be on one CUDA device (or "
@@ -104,18 +113,18 @@ def fused_resample_tmajor(xt: torch.Tensor, r: torch.Tensor, *, ipx: int,
                     device=xt.device)
     if y.numel() == 0:
         return y
-    op = resolve(op, r.t(), "fused_resample_tmajor")
+    op = resolve(op, r.t(), "fused_resample_tmajor", tier)
     fn = _launcher()
     with torch.cuda.device(xt.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xt.data_ptr(), xt.stride(0), op.packed.data_ptr(),
                  op.bands.data_ptr(), y.data_ptr(), n_frames, s, ipx, wx, p2,
-                 op.split, stream)
+                 op.split, TIER_CODES[tier], stream)
     if err:
         raise RuntimeError(
             f"fused_resample_tmajor: kernel launch failed with CUDA error "
             f"{err} (S={s}, n_frames={n_frames}, ipx={ipx}, wx={wx}, "
-            f"p2={p2})")
+            f"p2={p2}, tier={tier})")
     launches += 1
     return y
 
@@ -128,5 +137,5 @@ def _launcher():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return fn

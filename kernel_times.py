@@ -4,7 +4,7 @@ the main path's and the decimation path's shapes, K3 at the one-shot
 general and cubic shapes.
 
     python3 kernel_times.py [--root DIR] [--tag NAME] [--seed N]
-                            [--path-runs N]
+                            [--path-runs N] [--tier TIER]
 
 Imports ``go_audio_resampler_tpu_torch`` from DIR (by default the
 directory of this file), builds its kernels there and prints one JSON
@@ -27,6 +27,16 @@ timed) is timed beside it.  Each time is a CUDA graph of 20 launches
 replayed 10 times (``chip_smoke.graph_ms``; 5 of 5 for ``bmm``), so the
 host's enqueue time is not counted.  Inputs come from ``--seed``; TF32
 is off for the plain versions.
+
+``--tier`` ('highest' by default, 'high' or 'default'; see
+``ops/precision.py``) runs every kernel and plain version at that matmul
+tier, for a tree whose wrappers take ``tier``; at 'high' and 'default'
+``torch.matmul`` (K1, K2) and ``torch.bmm`` (K3) on bf16 operands are
+timed beside them (the casts not timed).
+
+``--save FILE`` writes each kernel's output at each shape (on the
+seed's inputs) to FILE with ``torch.save``, so that two trees' bits can be
+compared.
 
 ``--path-runs N`` also drives ``chip_smoke.py``'s decimation path (48 kHz
 -> 16 kHz HIGH, 256 streams x 10.016 s, 3072-sample steps) N times
@@ -101,6 +111,11 @@ def main() -> int:
     ap.add_argument("--path-runs", type=int, default=0,
                     help="also drive the decimation path this many times "
                          "through each engine, cold and warm")
+    ap.add_argument("--save", default="",
+                    help="write the kernels' outputs to this file")
+    ap.add_argument("--tier", default="highest",
+                    choices=("highest", "high", "default"),
+                    help="matmul tier of the kernels and plain versions")
     args = ap.parse_args()
 
     import torch
@@ -119,10 +134,19 @@ def main() -> int:
                       "general_resample"])
     takes_op = "op" in inspect.signature(fused.fused_resample).parameters
     k3_params = inspect.signature(general.general_resample).parameters
+    tiered = "tier" in inspect.signature(fused.fused_resample).parameters
+    if args.tier != "highest" and not tiered:
+        print(f"kernel_times: {args.root} has no tier {args.tier!r}",
+              file=sys.stderr)
+        return 2
+    tier = {"tier": args.tier} if tiered else {}
+    bf16 = args.tier != "highest"
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
-    out = {"tag": args.tag, "card": card, "root": os.path.abspath(args.root)}
+    out = {"tag": args.tag, "card": card, "root": os.path.abspath(args.root),
+           "tier": args.tier}
+    saved = {}
     for shape, rates, block, streams, n_frames, width in (
             ("main", (44100, 48000), 2352, 1024, 16, 2646),
             ("decimation", (48000, 16000), 2048, 256, 2, 4422)):
@@ -131,40 +155,56 @@ def main() -> int:
         r_t, ipx, wx, p2 = eng._band[:4]
         rt = r_t.to("cuda")
         r = rt.t().contiguous()
-        kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=n_frames)
+        kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=n_frames, **tier)
         if takes_op:
             from go_audio_resampler_tpu_torch.ops import banded
-            kw["op"] = banded.prepare(rt)
+            kw["op"] = banded.prepare(rt, **tier)
         x = torch.randn((streams, width), generator=gen, device="cuda")
         xt = x.t().contiguous()
-        plain = dict(ipx=ipx, wx=wx, p2=p2, n_frames=n_frames)
+        plain = dict(ipx=ipx, wx=wx, p2=p2, n_frames=n_frames, **tier)
         ref = fused.fused_resample_reference(x, rt, **plain)
         y1 = fused.fused_resample(x, rt, **kw)
         y2 = tmajor.fused_resample_tmajor(xt, r, **kw)
         torch.cuda.synchronize()
+        saved[f"k1_{shape}"], saved[f"k2_{shape}"] = y1.cpu(), y2.cpu()
         out[f"k1_{shape}_err"] = (y1 - ref).abs().max().item()
         out[f"k2_{shape}_err"] = (y2.t() - ref).abs().max().item()
         out[f"k1_{shape}_ms"] = graph_ms(
             lambda: fused.fused_resample(x, rt, **kw))
         out[f"k2_{shape}_ms"] = graph_ms(
             lambda: tmajor.fused_resample_tmajor(xt, r, **kw))
+        if bf16:
+            need = (n_frames - 1) * ipx + wx
+            xb = x.to(torch.bfloat16)
+            frames = xb[:, :need].unfold(1, wx, ipx)
+            frames_t = xb.t()[:need].unfold(0, wx, ipx).transpose(1, 2)
+            rb, rbt = rt.to(torch.bfloat16), r.to(torch.bfloat16)
+            out[f"k1_{shape}_plain_ms"] = graph_ms(
+                lambda: fused.fused_resample_reference(x, rt, **plain),
+                reps=5, iters=5)
+            out[f"matmul_bf16_k1_{shape}_ms"] = graph_ms(
+                lambda: torch.matmul(frames, rb), reps=5, iters=5)
+            out[f"matmul_bf16_k2_{shape}_ms"] = graph_ms(
+                lambda: torch.matmul(rbt, frames_t), reps=5, iters=5)
+            del xb, frames, frames_t
     for shape in K3_SHAPES:
         starts, m, bands, wgs = k3_operands(shape)
         _, w_band, tile = m.shape
         x = 0.5 * torch.randn((ONESHOT_STREAMS, int(starts[-1]) + w_band),
                               generator=gen, device="cuda")
-        kw = dict(w_band=w_band, tile=tile)
+        kw = dict(w_band=w_band, tile=tile, **tier)
         if "bands" in k3_params:
             kw["bands"] = bands
         if "warpgroups" in k3_params:
             kw["warpgroups"] = wgs
             out[f"k3_{shape}_warpgroups"] = wgs
         ref = general.general_resample_reference(x, m, starts, w_band=w_band,
-                                                 tile=tile)
+                                                 tile=tile, **tier)
         y = general.general_resample(x, m, starts, **kw)
         idx = starts[:, None] + torch.arange(w_band, device="cuda")[None, :]
         frames = x[:, idx].permute(1, 0, 2).contiguous()     # [T, S, W]
         torch.cuda.synchronize()
+        saved[f"k3_{shape}"] = y.cpu()
         out[f"k3_{shape}_err"] = (y - ref).abs().max().item()
         out[f"k3_{shape}_ms"] = graph_ms(
             lambda: general.general_resample(x, m, starts, **kw))
@@ -174,7 +214,14 @@ def main() -> int:
                 lambda: general.general_resample(x, m, starts, **other))
         out[f"bmm_{shape}_ms"] = graph_ms(lambda: torch.bmm(frames, m),
                                           reps=5, iters=5)
+        if bf16:
+            fb, mb = frames.to(torch.bfloat16), m.to(torch.bfloat16)
+            out[f"bmm_bf16_{shape}_ms"] = graph_ms(lambda: torch.bmm(fb, mb),
+                                                   reps=5, iters=5)
+            del fb, mb
         del frames
+    if args.save:
+        torch.save(saved, args.save)
     if args.path_runs:
         out["decimation_runs"] = path_runs(args.path_runs, gen)
     print(json.dumps(out))

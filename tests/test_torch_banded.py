@@ -91,8 +91,8 @@ def test_split_fills_the_card_at_the_decimation_shape():
     """The decimation operator's long bands are split across clusters of
     8, so its 256-stream step launches more blocks than the card has SMs;
     the main operator's bands are short enough for one tall block each."""
-    dec = banded.prepare(_r_t("decimation"))
-    main = banded.prepare(_r_t("main"))
+    dec = banded.prepare(_r_t("decimation"), tier="highest")
+    main = banded.prepare(_r_t("main"), tier="highest")
     assert (dec.split, main.split) == (8, 1)
     assert (banded.tile_rows(8), banded.tile_rows(1)) == (128, 256)
     rows = 256 * 2                                    # streams x frames
@@ -135,7 +135,7 @@ def test_tf32_round_is_round_to_nearest_ties_away():
 def test_packed_limbs_are_where_the_kernels_read_them(name):
     r_t = _r_t(name)
     wx, p2 = r_t.shape
-    op = banded.prepare(r_t)
+    op = banded.prepare(r_t, tier="highest")
     hi, lo = banded.split_limbs(r_t)
     ks, nb = -(-wx // 8), -(-p2 // 8)
     assert tuple(op.packed.shape) == (nb, ks, 32, 4)
@@ -151,17 +151,19 @@ def test_packed_limbs_are_where_the_kernels_read_them(name):
 
 def test_prepare_checks_and_resolve():
     r_t = _r_t("main")
-    op = banded.prepare(r_t)
-    assert banded.resolve(op, r_t, "k") is op
+    op = banded.prepare(r_t, tier="highest")
+    assert banded.resolve(op, r_t, "k", tier="highest") is op
     with pytest.raises(ValueError, match="op=banded.prepare"):
-        banded.resolve(None, r_t, "k")      # never prepared per launch
+        # never prepared per launch
+        banded.resolve(None, r_t, "k", tier="highest")
     with pytest.raises(ValueError, match="prepared for"):
-        banded.resolve(op, r_t[:, :100], "k")
+        banded.resolve(op, r_t[:, :100], "k", tier="highest")
     with pytest.raises(TypeError, match="float32"):
-        banded.prepare(r_t.double())
+        banded.prepare(r_t.double(), tier="highest")
     with pytest.raises(ValueError, match="wx, p2"):
-        banded.prepare(r_t[None])
-    assert banded.prepare_on_card(r_t) is None          # a CPU tensor
+        banded.prepare(r_t[None], tier="highest")
+    # a CPU tensor
+    assert banded.prepare_on_card(r_t, tier="highest") is None
 
 
 # -- the build ------------------------------------------------------------------
@@ -216,18 +218,20 @@ def _tf32_trunc(a: np.ndarray) -> np.ndarray:
     return (a.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def emulate_kernel(data, r_t, *, ipx, wx, p2, n_frames, op=None):
-    """The kernels' arithmetic in numpy, float32 in and out: signal limbs
-    (hi rounded to TF32, lo the remainder as the tensor cores read it),
-    R's prepared limbs with B zero outside each n8 block's band, per
+def emulate_kernel(data, r_t, *, ipx, wx, p2, n_frames, op=None,
+                   tier="highest"):
+    """The kernels' arithmetic at the 'highest' tier in numpy, float32 in
+    and out: signal limbs (hi rounded to TF32, lo the remainder as the
+    tensor cores read it), R's prepared limbs with B zero outside each n8 block's band, per
     column tile the union band cut into ``split`` parts, and per part
     stages of STAGE_KSTEPS k-steps, each starting from zero, of three
     passes (lo*hi, hi*lo, hi*hi), each pass an 8-tap product added to the
     stage's float32 sum; stages summed in float32, parts in rank order."""
     del op
+    assert tier == 'highest', tier
     s = data.shape[0]
     r32 = r_t.float()
-    op = banded.prepare(r32)
+    op = banded.prepare(r32, 'highest')
     frames = gather_windows(data.float(), n_frames, ipx, wx).numpy()
     m = s * n_frames
     ks_total, nb_total = -(-wx // 8), -(-p2 // 8)
@@ -302,7 +306,8 @@ def test_3xtf32_emulation_matches_jax_float64_engine(monkeypatch, name,
     r_t = te._band.r_t
     xd = torch.from_numpy(x[:, :4000].astype(np.float32))
     kw = dict(ipx=te._band.ipx, wx=te._band.wx, p2=te._band.p2,
-              n_frames=(4000 - te._band.wx) // te._band.ipx + 1)
+              n_frames=(4000 - te._band.wx) // te._band.ipx + 1,
+              tier="highest")
     ref = fused.fused_resample_reference(xd, r_t, **kw)
     emu = emulate_kernel(xd, r_t, **kw)
     assert (emu - ref).abs().max().item() <= TOL

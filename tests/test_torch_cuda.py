@@ -69,11 +69,12 @@ def test_kernel_matches_plain_version(cuda, s, nf, rates_q):
         x = _data(s, (nf - 1) * ipx + wx + 3, cuda, s)
         before = fused.launches
         y = fused.fused_resample(x, rt, ipx=ipx, wx=wx, p2=p2, n_frames=nf,
-                                 op=banded.prepare(rt))
+                                 op=banded.prepare(rt, tier="highest"),
+                                 tier="highest")
         torch.cuda.synchronize()
         assert fused.launches == before + 1
         ref = fused.fused_resample_reference(x, rt, ipx=ipx, wx=wx, p2=p2,
-                                             n_frames=nf)
+                                             n_frames=nf, tier="highest")
         assert y.shape == ref.shape == (s, nf * p2)
         assert (y - ref).abs().max().item() <= TOL
 
@@ -86,7 +87,8 @@ def test_kernels_take_rows_that_start_off_a_16_byte_boundary(cuda, offset):
     through its 4-byte copies, with the same bits.  K2 likewise where the
     row stride is not a multiple of 4 floats."""
     rt, ipx, wx, p2 = _operator(PLANS[0], False, cuda)
-    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=9, op=banded.prepare(rt))
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=9,
+              op=banded.prepare(rt, tier="highest"), tier="highest")
     n = 8 * ipx + wx
     store = _data(1, offset + 6 * n, cuda, offset).reshape(-1)
     x = store[offset:].view(6, n)
@@ -94,7 +96,7 @@ def test_kernels_take_rows_that_start_off_a_16_byte_boundary(cuda, offset):
     y = fused.fused_resample(x, rt, **kw)
     assert torch.equal(y, fused.fused_resample(x.clone(), rt, **kw))
     ref = fused.fused_resample_reference(x, rt, ipx=ipx, wx=wx, p2=p2,
-                                         n_frames=9)
+                                         n_frames=9, tier="highest")
     assert (y - ref).abs().max().item() <= TOL
     xt = _data(n, 4 + offset, cuda, 9)                   # ld % 4 != 0
     yt = tmajor.fused_resample_tmajor(xt, rt.t().contiguous(), **kw)
@@ -107,7 +109,8 @@ def test_kernel_output_bits_do_not_depend_on_the_launch(cuda):
     """One launch over 32 frames equals two launches of 16, bit for bit."""
     rt, ipx, wx, p2 = _operator(PLANS[0], False, cuda)
     x = _data(6, 31 * ipx + wx, cuda, 1)
-    kw = dict(ipx=ipx, wx=wx, p2=p2, op=banded.prepare(rt))
+    kw = dict(ipx=ipx, wx=wx, p2=p2, op=banded.prepare(rt, tier="highest"),
+              tier="highest")
     whole = fused.fused_resample(x, rt, n_frames=32, **kw)
     a = fused.fused_resample(x[:, :15 * ipx + wx].contiguous(), rt,
                              n_frames=16, **kw)
@@ -121,7 +124,7 @@ def test_kernel_output_bits_do_not_depend_on_the_launch(cuda):
 def test_kernel_rejects_what_it_does_not_take(cuda):
     rt, ipx, wx, p2 = _operator(PLANS[0], False, cuda)
     x = torch.zeros((2, 15 * ipx + wx), device=cuda)
-    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=16)
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=16, tier="highest")
     before = fused.launches
     with pytest.raises(TypeError, match="float32"):
         fused.fused_resample(x.double(), rt.double(), **kw)
@@ -179,18 +182,19 @@ def test_k2_matches_plain_version_and_k1(cuda, s, nf, rates_q):
     r = rt.t().contiguous()
     xt = _data((nf - 1) * ipx + wx + 5, s, cuda, s)
     before = tmajor.launches
-    op = banded.prepare(rt)
+    op = banded.prepare(rt, tier="highest")
     y = tmajor.fused_resample_tmajor(xt, r, ipx=ipx, wx=wx, p2=p2,
-                                     n_frames=nf, op=op)
+                                     n_frames=nf, op=op, tier="highest")
     torch.cuda.synchronize()
     assert tmajor.launches == before + 1
     ref = tmajor.fused_resample_tmajor_reference(xt, r, ipx=ipx, wx=wx,
-                                                 p2=p2, n_frames=nf)
+                                                 p2=p2, n_frames=nf,
+                                                 tier="highest")
     assert y.shape == ref.shape == (nf * p2, s)
     assert (y - ref).abs().max().item() <= TOL
     # The same fmaf chain as K1: bit-equal on the transposed data.
     y1 = fused.fused_resample(xt.t().contiguous(), rt, ipx=ipx, wx=wx, p2=p2,
-                              n_frames=nf, op=op)
+                              n_frames=nf, op=op, tier="highest")
     assert torch.equal(y, y1.t())
 
 
@@ -238,11 +242,12 @@ def test_k3_matches_plain_version(cuda, s, n_tiles, w_band, tile, n, band,
     x, m, starts, bands = _k3_case(s, n_tiles, w_band, tile, n, cuda, s,
                                    band)
     ref = general.general_resample_reference(x, m, starts, w_band=w_band,
-                                             tile=tile)
+                                             tile=tile, tier="highest")
     for st in (starts, starts.int()):
         before = general.launches
         y = general.general_resample(x, m, st, w_band=w_band, tile=tile,
-                                     bands=bands, warpgroups=warpgroups)
+                                     bands=bands, warpgroups=warpgroups,
+                                     tier="highest")
         torch.cuda.synchronize()
         assert general.launches == before + 1
         assert y.shape == ref.shape == (s, n_tiles * tile)
@@ -255,7 +260,8 @@ def test_k3_reads_m_only_within_its_bands(cuda, warpgroups):
     """Values of M outside its band table are never read: poisoned with
     NaN there, M gives the clean matrix's bits."""
     x, m, starts, bands = _k3_case(7, 6, 200, 256, 3000, cuda, 12, (30, 9))
-    kw = dict(w_band=200, tile=256, bands=bands, warpgroups=warpgroups)
+    kw = dict(w_band=200, tile=256, bands=bands, warpgroups=warpgroups,
+              tier="highest")
     want = general.general_resample(x, m, starts, **kw)
     b = bands.cpu().numpy()
     inside = np.zeros(tuple(m.shape), bool)
@@ -267,7 +273,8 @@ def test_k3_reads_m_only_within_its_bands(cuda, warpgroups):
     assert torch.equal(general.general_resample(x, poisoned, starts, **kw),
                        want)
     assert (want - general.general_resample_reference(
-        x, m, starts, w_band=200, tile=256)).abs().max().item() <= TOL
+        x, m, starts, w_band=200, tile=256,
+        tier="highest")).abs().max().item() <= TOL
 
 
 @pytest.mark.cuda
@@ -279,10 +286,10 @@ def test_k3_matches_plain_version_at_the_one_shot_shapes(cuda, name, s):
     n_tiles, w_band, tile = m.shape
     x = _data(s, int(starts[-1]) + w_band, cuda, s)
     ref = general.general_resample_reference(x, m, starts, w_band=w_band,
-                                             tile=tile)
+                                             tile=tile, tier="highest")
     for w in (1, 2):
         y = general.general_resample(x, m, starts, w_band=w_band, tile=tile,
-                                     bands=bands, warpgroups=w)
+                                     bands=bands, warpgroups=w, tier="highest")
         assert y.shape == ref.shape == (s, n_tiles * tile)
         assert (y - ref).abs().max().item() <= TOL
 
@@ -292,7 +299,8 @@ def test_k2_k3_output_bits_do_not_depend_on_the_launch(cuda):
     rt, ipx, wx, p2 = _operator(PLANS[0], False, cuda)
     r = rt.t().contiguous()
     xt = _data(31 * ipx + wx, 6, cuda, 2)
-    kw = dict(ipx=ipx, wx=wx, p2=p2, op=banded.prepare(rt))
+    kw = dict(ipx=ipx, wx=wx, p2=p2, op=banded.prepare(rt, tier="highest"),
+              tier="highest")
     whole = tmajor.fused_resample_tmajor(xt, r, n_frames=32, **kw)
     a = tmajor.fused_resample_tmajor(xt[:15 * ipx + wx].contiguous(), r,
                                      n_frames=16, **kw)
@@ -301,7 +309,7 @@ def test_k2_k3_output_bits_do_not_depend_on_the_launch(cuda):
     assert torch.equal(whole, torch.cat([a, b]))
     x, m, starts, bands = _k3_case(6, 10, 300, 256, 5000, cuda, 3)
     for w in (1, 2):
-        kw = dict(w_band=300, tile=256, warpgroups=w)
+        kw = dict(w_band=300, tile=256, warpgroups=w, tier="highest")
         whole = general.general_resample(x, m, starts, bands=bands, **kw)
         parts = [general.general_resample(
             x, m[i:j].contiguous(), starts[i:j],
@@ -315,7 +323,8 @@ def test_k2_k3_output_bits_do_not_depend_on_the_launch(cuda):
     for name in ("general", "cubic"):
         starts, m, bands, w = _k3_oneshot(name, cuda)
         n_tiles, w_band, tile = m.shape
-        kw = dict(w_band=w_band, tile=tile, bands=bands, warpgroups=w)
+        kw = dict(w_band=w_band, tile=tile, bands=bands, warpgroups=w,
+                  tier="highest")
         x = _data(65, int(starts[-1]) + w_band, cuda, 4)
         whole = general.general_resample(x, m, starts, **kw)
         assert torch.equal(general.general_resample(
@@ -333,9 +342,9 @@ def test_k2_k3_reject_what_they_do_not_take(cuda):
     rt, ipx, wx, p2 = _operator(PLANS[0], False, cuda)
     r = rt.t().contiguous()
     xt = torch.zeros((15 * ipx + wx, 4), device=cuda)
-    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=16)
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=16, tier="highest")
     x, m, starts, bands = _k3_case(4, 3, 20, 16, 100, cuda, 4)
-    gk = dict(w_band=20, tile=16, bands=bands)
+    gk = dict(w_band=20, tile=16, bands=bands, tier="highest")
     before = (tmajor.launches, general.launches)
     with pytest.raises(TypeError, match="float32"):
         tmajor.fused_resample_tmajor(xt.double(), r.double(), **kw)
@@ -356,13 +365,14 @@ def test_k2_k3_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError, match="int32 or int64"):
         general.general_resample(x, m, starts.float(), **gk)
     with pytest.raises(ValueError, match="bands=general.band_table"):
-        general.general_resample(x, m, starts, w_band=20, tile=16)
+        general.general_resample(x, m, starts, w_band=20, tile=16,
+                                 tier="highest")
     with pytest.raises(ValueError, match="bands must be"):
         general.general_resample(x, m, starts, w_band=20, tile=16,
-                                 bands=bands.cpu())
+                                 bands=bands.cpu(), tier="highest")
     with pytest.raises(ValueError, match="warpgroups must be 1 or 2"):
         general.general_resample(x, m, starts, w_band=20, tile=16,
-                                 bands=bands, warpgroups=4)
+                                 bands=bands, warpgroups=4, tier="highest")
     assert (tmajor.launches, general.launches) == before
 
 
@@ -381,10 +391,10 @@ def _decim_operator(device):
 @pytest.mark.parametrize("s,nf", [(256, 2), (37, 5), (1, 1)])
 def test_k1_k2_match_plain_versions_at_the_decimation_operator(cuda, s, nf):
     rt, ipx, wx, p2 = _decim_operator(cuda)
-    op = banded.prepare(rt)
+    op = banded.prepare(rt, tier="highest")
     assert op.split == 8
     x = _data(s, (nf - 1) * ipx + wx + 7, cuda, s)
-    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=nf)
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=nf, tier="highest")
     before = (fused.launches, tmajor.launches)
     y1 = fused.fused_resample(x, rt, op=op, **kw)
     y2 = tmajor.fused_resample_tmajor(x.t().contiguous(), rt.t().contiguous(),
@@ -406,9 +416,9 @@ def test_bits_do_not_depend_on_streams_or_frames_with_the_cluster_split(
     output's bits do not depend on how many streams or frames a launch
     holds, in K1 or K2."""
     rt, ipx, wx, p2 = _decim_operator(cuda)
-    op = banded.prepare(rt)
+    op = banded.prepare(rt, tier="highest")
     x = _data(300, 5 * ipx + wx, cuda, 7)
-    kw = dict(ipx=ipx, wx=wx, p2=p2, op=op)
+    kw = dict(ipx=ipx, wx=wx, p2=p2, op=op, tier="highest")
     whole = fused.fused_resample(x, rt, n_frames=6, **kw)
     assert torch.equal(fused.fused_resample(x[:37].contiguous(), rt,
                                             n_frames=6, **kw), whole[:37])
@@ -431,8 +441,8 @@ def test_bits_do_not_depend_on_streams_or_frames_with_the_cluster_split(
 def test_prepare_on_the_card_equals_the_host(cuda, rates_q):
     eng = EngineCore(plan_engine(*rates_q), block=2048, device="cpu")
     r_t = eng._band.r_t
-    host = banded.prepare(r_t)
-    card = banded.prepare(r_t.to(cuda))
+    host = banded.prepare(r_t, tier="highest")
+    card = banded.prepare(r_t.to(cuda), tier="highest")
     assert card.packed.device.type == card.bands.device.type == "cuda"
     assert torch.equal(card.packed.cpu(), host.packed)
     assert torch.equal(card.bands.cpu(), host.bands)
@@ -504,8 +514,9 @@ def test_oneshot_apply_prepares_nothing(cuda, monkeypatch, rates_q, wrapper):
     same bits with the preparation disabled."""
     plan = plan_engine(*rates_q)
     x = _data(3, 5000, cuda, 23)
-    aux = oneshot._oneshot_aux(plan, 5000, torch.float32, cuda)
-    want = oneshot._oneshot_apply(plan, x, aux)
+    aux = oneshot._oneshot_aux(plan, 5000, torch.float32, cuda,
+                               tier="highest")
+    want = oneshot._oneshot_apply(plan, x, aux, tier="highest")
 
     def no_preparation(*a, **kw):
         raise AssertionError("operator prepared in the apply")
@@ -514,5 +525,141 @@ def test_oneshot_apply_prepares_nothing(cuda, monkeypatch, rates_q, wrapper):
     monkeypatch.setattr(convolve, "band_matrix", no_preparation)
     monkeypatch.setattr(general, "band_table", no_preparation)
     before = wrapper.launches
-    assert torch.equal(oneshot._oneshot_apply(plan, x, aux), want)
+    assert torch.equal(oneshot._oneshot_apply(plan, x, aux,
+                                              tier="highest"), want)
     assert wrapper.launches == before + 1
+
+
+# -- the precision tiers ('high': three bf16 passes; 'default': one) -------------
+
+TIERS = ("high", "default")
+
+
+def _rel_err(y, ref):
+    """max|y - ref| over max|ref|: the products of a tier are exact in
+    both, so only the order of the sums differs (2e-5 of max|y|)."""
+    return ((y - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("s,nf,which", [
+    (1024, 16, "main"), (5, 13, "main"), (37, 20, "down"), (256, 2, "decim"),
+    (37, 5, "decim"), (1, 1, "main"),
+])
+def test_k1_k2_at_each_tier_match_plain_versions(cuda, tier, s, nf, which):
+    """K1 and K2 at a bf16 tier against their plain versions (TF32 off),
+    and K2 == K1 bit for bit."""
+    if which == "decim":
+        rt, ipx, wx, p2 = _decim_operator(cuda)
+    else:
+        rt, ipx, wx, p2 = _operator(PLANS[1] if which == "down" else PLANS[0],
+                                    True, cuda)
+    op = banded.prepare(rt, tier)
+    assert op.tier == tier
+    x = _data(s, (nf - 1) * ipx + wx + 3, cuda, s)
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=nf, tier=tier)
+    before = (fused.launches, tmajor.launches)
+    y1 = fused.fused_resample(x, rt, op=op, **kw)
+    y2 = tmajor.fused_resample_tmajor(x.t().contiguous(), rt.t().contiguous(),
+                                      op=op, **kw)
+    torch.cuda.synchronize()
+    assert (fused.launches, tmajor.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    ref = fused.fused_resample_reference(x, rt, **kw)
+    assert _rel_err(y1, ref) <= TOL
+    assert torch.equal(y2, y1.t())
+    exact = fused.fused_resample_reference(x, rt, **dict(kw, tier="highest"))
+    assert not torch.equal(ref, exact)            # the tier is applied
+    with pytest.raises(ValueError, match="tier"):
+        fused.fused_resample(x, rt, op=banded.prepare(rt, "highest"), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("which", ["main", "decim"])
+def test_k1_k2_bits_at_each_tier_do_not_depend_on_the_launch(cuda, tier,
+                                                            which):
+    """65 streams against 64 and 1, and a split of the frames."""
+    rt, ipx, wx, p2 = (_decim_operator(cuda) if which == "decim"
+                       else _operator(PLANS[0], False, cuda))
+    kw = dict(ipx=ipx, wx=wx, p2=p2, op=banded.prepare(rt, tier), tier=tier)
+    x = _data(65, 5 * ipx + wx, cuda, 5)
+    whole = fused.fused_resample(x, rt, n_frames=6, **kw)
+    assert torch.equal(fused.fused_resample(x[:64].contiguous(), rt,
+                                            n_frames=6, **kw), whole[:64])
+    assert torch.equal(fused.fused_resample(x[64:].contiguous(), rt,
+                                            n_frames=6, **kw), whole[64:])
+    assert torch.equal(fused.fused_resample(x[:, 2 * ipx:].contiguous(), rt,
+                                            n_frames=4, **kw),
+                       whole[:, 2 * p2:])
+    r, xt = rt.t().contiguous(), x.t().contiguous()
+    whole_t = tmajor.fused_resample_tmajor(xt, r, n_frames=6, **kw)
+    assert torch.equal(whole_t, whole.reshape(65, 6, p2).permute(
+        1, 2, 0).reshape(6 * p2, 65))
+    assert torch.equal(tmajor.fused_resample_tmajor(
+        xt[:, :64].contiguous(), r, n_frames=6, **kw), whole_t[:, :64])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("warpgroups", [1, 2])
+def test_k3_at_each_tier_matches_plain_version(cuda, tier, warpgroups):
+    cases = [_k3_case(65, 7, 17, 200, 500, cuda, 1),
+             _k3_case(66, 9, 300, 512, 4000, cuda, 2, (40, 12)),
+             _k3_case(9, 4, 37, 30, 601, cuda, 3)]
+    for name in ("general", "cubic"):
+        starts, m, bands, _ = _k3_oneshot(name, cuda)
+        cases.append((_data(65, int(starts[-1]) + m.shape[1], cuda, 6), m,
+                      starts, bands))
+    for x, m, starts, bands in cases:
+        n_tiles, w_band, tile = m.shape
+        kw = dict(w_band=w_band, tile=tile, tier=tier)
+        ref = general.general_resample_reference(x, m, starts, **kw)
+        before = general.launches
+        y = general.general_resample(x, m, starts, bands=bands,
+                                     warpgroups=warpgroups, **kw)
+        torch.cuda.synchronize()
+        assert general.launches == before + 1
+        assert y.shape == ref.shape and _rel_err(y, ref) <= TOL
+        # 65 streams against 64 and 1: the bits do not depend on S.
+        assert torch.equal(general.general_resample(
+            x[:64].contiguous(), m, starts, bands=bands,
+            warpgroups=warpgroups, **kw), y[:64])
+        assert torch.equal(general.general_resample(
+            x[64:].contiguous(), m, starts, bands=bands,
+            warpgroups=warpgroups, **kw), y[64:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("rates_q", [PLANS[0], (48000, 16000, Quality.HIGH)])
+def test_engines_at_each_tier(cuda, tier, rates_q):
+    """Both engines at a tier on the card: TimeMajorEngine == EngineCore
+    bit for bit, within the plain version's run (2e-5 of max|y|), and the
+    gate: 'xla' and force_xla launch nothing and give the plain version's
+    bits on the card."""
+    from go_audio_resampler_tpu_torch.ops import precision
+    plan = plan_engine(*rates_q)
+    kw = dict(batch=5, block=BLOCK, precision=tier)
+    core = EngineCore(plan, **kw)
+    m = core.device_chunk_multiple
+    x = _data(5, 30 * m, cuda, 24)
+    before = (fused.launches, tmajor.launches)
+    y = torch.cat([core.process_device(x), core.flush_device()], 1)
+    tm = TimeMajorEngine(plan, **kw)
+    yt = torch.cat([tm.process_device(x.t().contiguous()), tm.flush_device()])
+    assert fused.launches > before[0] and tmajor.launches > before[1]
+    assert torch.equal(yt.t(), y)
+    plain = EngineCore(plan, dispatch="xla", **kw)
+    before = (fused.launches, tmajor.launches)
+    yp = torch.cat([plain.process_device(x), plain.flush_device()], 1)
+    with precision.force_xla():
+        forced = EngineCore(plan, **kw)
+        yf = torch.cat([forced.process_device(x), forced.flush_device()], 1)
+    assert (fused.launches, tmajor.launches) == before
+    assert torch.equal(yp, yf)
+    assert _rel_err(y, yp) <= TOL
+    pallas = EngineCore(plan, dispatch="pallas", **kw)
+    assert torch.equal(torch.cat([pallas.process_device(x),
+                                  pallas.flush_device()], 1), y)

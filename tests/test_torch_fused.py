@@ -43,7 +43,7 @@ def _operator(rates_q, superframed=False):
 def _port(x, rt, ipx, wx, p2, nf, dtype):
     return fused.fused_resample(
         torch.from_numpy(x.astype(dtype)), torch.from_numpy(rt.astype(dtype)),
-        ipx=ipx, wx=wx, p2=p2, n_frames=nf).numpy()
+        ipx=ipx, wx=wx, p2=p2, n_frames=nf, tier="highest").numpy()
 
 
 @pytest.mark.parametrize("rates_q", PLANS)
@@ -84,12 +84,14 @@ def test_wrapper_on_cpu_is_the_plain_version():
         size=(4, 15 * ipx + wx)).astype(np.float32))
     r = torch.from_numpy(rt.astype(np.float32))
     before = fused.launches
-    y = fused.fused_resample(x, r, ipx=ipx, wx=wx, p2=p2, n_frames=16)
+    y = fused.fused_resample(x, r, ipx=ipx, wx=wx, p2=p2, n_frames=16,
+                             tier="highest")
     ref = fused.fused_resample_reference(x, r, ipx=ipx, wx=wx, p2=p2,
-                                         n_frames=16)
+                                         n_frames=16, tier="highest")
     assert fused.launches == before
     assert torch.equal(y, ref)
-    empty = fused.fused_resample(x, r, ipx=ipx, wx=wx, p2=p2, n_frames=0)
+    empty = fused.fused_resample(x, r, ipx=ipx, wx=wx, p2=p2, n_frames=0,
+                                 tier="highest")
     assert empty.shape == (4, 0)
 
 
@@ -100,7 +102,7 @@ def test_wrapper_on_cpu_is_the_plain_version():
 ])
 def test_wrapper_rejects_bad_shapes(kw, match):
     rt, ipx, wx, p2 = _operator(PLANS[0])
-    args = dict(ipx=ipx, wx=wx, p2=p2, n_frames=16)
+    args = dict(ipx=ipx, wx=wx, p2=p2, n_frames=16, tier="highest")
     args.update(kw)
     x = torch.zeros((2, 15 * ipx + wx))
     with pytest.raises(ValueError, match=match):

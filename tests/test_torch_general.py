@@ -133,7 +133,7 @@ def test_band_table_of_hand_made_tiles():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_oneshot_aux_carries_the_band_table(name, dtype):
     _, tp = _plans(name)
-    aux = toneshot._oneshot_aux(tp, 2000, dtype, "cpu")
+    aux = toneshot._oneshot_aux(tp, 2000, dtype, "cpu", tier="highest")
     assert len(aux) == 4
     starts, m, bands, warpgroups = aux
     assert starts.dtype == torch.int64 and m.dtype == dtype
@@ -181,10 +181,11 @@ def test_the_plain_version_ignores_the_band_table():
     x = torch.from_numpy(rng.normal(size=(3, 400)))
     m = torch.from_numpy(rng.normal(size=(4, 30, 16)))
     starts = torch.tensor([-2, 50, 120, 380])
-    want = general.general_resample(x, m, starts, w_band=30, tile=16)
+    want = general.general_resample(x, m, starts, w_band=30, tile=16,
+                                    tier="highest")
     before = general.launches
     got = general.general_resample(x, m, starts, w_band=30, tile=16,
-                                   bands=general.band_table(m))
+                                   bands=general.band_table(m), tier="highest")
     assert torch.equal(got, want) and general.launches == before
 
 
@@ -218,14 +219,17 @@ def _limbs(a: np.ndarray):
     return hi, _tf32_trunc(a - hi)
 
 
-def emulate_k3(x, m_t, starts, *, w_band, tile, bands=None, warpgroups=2):
-    """K3's arithmetic in numpy, float32 in and out: M's limbs (the A
-    operand) and the window's (B), each warpgroup's 64 columns walking the
-    union of their 8-column bands (clipped to w_band), in stages of
+def emulate_k3(x, m_t, starts, *, w_band, tile, bands=None, warpgroups=2,
+               tier="highest"):
+    """K3's arithmetic at the 'highest' tier in numpy, float32 in and
+    out: M's limbs (the A operand) and the window's (B), each warpgroup's
+    64 columns walking the union of their 8-column bands (clipped to
+    w_band), in stages of
     STAGE_KSTEPS[warpgroups] k-steps on the grid from tap 0; a stage's sum
     starts from zero and takes, per k-step, three passes (lo*hi, hi*lo,
     hi*hi), each an 8-tap product added to it in float32; stages summed in
     float32."""
+    assert tier == 'highest', tier
     ksteps = STAGE_KSTEPS[warpgroups]
     wp = general.WARPGROUP_P
     n_tiles = m_t.shape[0]

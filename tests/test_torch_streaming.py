@@ -25,6 +25,7 @@ from go_audio_resampler_tpu_torch.engine import EngineCore, plan_from_arrays
 from go_audio_resampler_tpu_torch.engine.plan import plan_engine
 from go_audio_resampler_tpu_torch.filterdesign import Quality
 from go_audio_resampler_tpu_torch.ops import fused
+from go_audio_resampler_tpu_torch.ops.precision import default_error_bound
 
 streaming = importlib.import_module(
     "go_audio_resampler_tpu_torch.engine.streaming")
@@ -369,12 +370,8 @@ def test_unported_topologies_raise(rates, kw):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    ({"dispatch": "pallas"}, NotImplementedError),
-    ({"dispatch": "xla"}, NotImplementedError),
     ({"dispatch": "tune"}, NotImplementedError),
     ({"dispatch": "bogus"}, ValueError),
-    ({"precision": "high"}, NotImplementedError),
-    ({"precision": "default"}, NotImplementedError),
     ({"precision": "bogus"}, ValueError),
     ({"dtype": np.int32}, ValueError),
 ])
@@ -382,6 +379,52 @@ def test_unsupported_knobs_raise(kw, exc):
     plan = plan_engine(44100, 48000, Quality.HIGH)
     with pytest.raises(exc):
         EngineCore(plan, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [{"dispatch": "pallas"}, {"dispatch": "xla"},
+                                {"precision": "high"},
+                                {"precision": "default"}])
+def test_ported_knobs_run(kw):
+    """The dispatch modes and reduced tiers run and match the JAX engine:
+    every mode gives the default engine's bits (on the CPU each takes the
+    plain version) within 2e-5 of JAX's float32 run with the same mode;
+    'high' is within 3e-4 of max|y| of JAX's float64 run and 'default'
+    within a bound from bf16's roundoff
+    (``precision.default_error_bound``)."""
+    rates_q = (44100, 48000, 3)
+    x = np.random.default_rng(14).normal(size=(BATCH, 4000)).astype(
+        np.float32)
+    je, te = _engines(rates_q, np.float32)
+    te = EngineCore(te.plan, batch=BATCH, block=BLOCK, dtype=np.float32,
+                    device="cpu", **kw)
+    got = np.concatenate([te.process(x), te.flush()], axis=1)
+    if "dispatch" in kw:
+        assert te.dispatch == kw["dispatch"]
+        je = JEngine(je.plan, batch=BATCH, block=BLOCK, dtype=np.float32,
+                     dispatch=kw["dispatch"])
+        want = np.concatenate([np.asarray(je.process(x)),
+                               np.asarray(je.flush())], axis=1)
+        _close(got, want, np.float32)
+        ref = EngineCore(te.plan, batch=BATCH, block=BLOCK,
+                         dtype=np.float32, device="cpu")
+        assert np.array_equal(got, np.concatenate([ref.process(x),
+                                                   ref.flush()], axis=1))
+        return
+    assert te.precision == kw["precision"]
+    je, _ = _engines(rates_q, np.float64)
+    want = np.concatenate([np.asarray(je.process(x.astype(np.float64))),
+                           np.asarray(je.flush())], axis=1)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max()
+    if kw["precision"] == "high":
+        bound = 3e-4 * np.abs(want).max()
+    else:
+        bound = default_error_bound(np.abs(x).max(), te._band.r_t)
+    assert err <= bound, (err, bound)
+    exact = EngineCore(te.plan, batch=BATCH, block=BLOCK, dtype=np.float32,
+                       device="cpu")
+    assert np.abs(np.concatenate([exact.process(x), exact.flush()], axis=1)
+                  - want).max() < err
 
 
 @pytest.mark.parametrize("precision", ["auto", "highest"])

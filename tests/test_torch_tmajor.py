@@ -66,7 +66,7 @@ def test_plain_matches_pallas_interpret(kf, n_frames):
         p2=p2, ts=128, kf=kf, interpret=True))
     y_t = tmajor.fused_resample_tmajor(
         torch.from_numpy(xt), torch.from_numpy(r.astype(np.float32)),
-        ipx=ipx, wx=wx, p2=p2, n_frames=n_frames).numpy()
+        ipx=ipx, wx=wx, p2=p2, n_frames=n_frames, tier="highest").numpy()
     assert y_t.shape == y_j.shape == (n_frames * p2, s)
     np.testing.assert_allclose(y_t, y_j, rtol=0, atol=TOL[np.float32])
 
@@ -78,7 +78,8 @@ def test_plain_matches_dense_float64(n_frames):
                                                7))
     y = tmajor.fused_resample_tmajor(torch.from_numpy(xt),
                                      torch.from_numpy(r), ipx=ipx, wx=wx,
-                                     p2=p2, n_frames=n_frames).numpy()
+                                     p2=p2, n_frames=n_frames,
+                                     tier="highest").numpy()
     ref = np.concatenate([r @ xt[m * ipx:m * ipx + wx]
                           for m in range(n_frames)])
     assert y.dtype == np.float64
@@ -92,13 +93,14 @@ def test_wrapper_on_cpu_is_the_plain_version():
     rr = torch.from_numpy(r.astype(np.float32))
     before = tmajor.launches
     y = tmajor.fused_resample_tmajor(xt, rr, ipx=ipx, wx=wx, p2=p2,
-                                     n_frames=16)
+                                     n_frames=16, tier="highest")
     ref = tmajor.fused_resample_tmajor_reference(xt, rr, ipx=ipx, wx=wx,
-                                                 p2=p2, n_frames=16)
+                                                 p2=p2, n_frames=16,
+                                                 tier="highest")
     assert tmajor.launches == before
     assert torch.equal(y, ref)
     empty = tmajor.fused_resample_tmajor(xt, rr, ipx=ipx, wx=wx, p2=p2,
-                                         n_frames=0)
+                                         n_frames=0, tier="highest")
     assert empty.shape == (0, 4)
 
 
@@ -109,7 +111,7 @@ def test_wrapper_on_cpu_is_the_plain_version():
 ])
 def test_wrapper_rejects_bad_shapes(kw, match):
     _, ipx, wx, p2 = _cd_dat_operator()
-    args = dict(ipx=ipx, wx=wx, p2=p2, n_frames=16)
+    args = dict(ipx=ipx, wx=wx, p2=p2, n_frames=16, tier="highest")
     args.update(kw)
     with pytest.raises(ValueError, match=match):
         tmajor.fused_resample_tmajor(torch.zeros((15 * ipx + wx, 2)),
@@ -123,7 +125,7 @@ def test_step_counts():
     carry = torch.zeros((eng._band.carry, 2), dtype=torch.float64)
     x = torch.from_numpy(np.random.default_rng(6).normal(size=(ipx * 16, 2)))
     c2, y, n = _step_banded_tmajor(torch.from_numpy(r), carry, x, ipx=ipx,
-                                   wx=wx, p2=p2)
+                                   wx=wx, p2=p2, tier="highest")
     assert n == 16 * p2 and tuple(y.shape) == (16 * p2, 2)
     assert tuple(c2.shape) == (eng._band.carry, 2) and c2.is_contiguous()
     assert torch.equal(c2, x[-eng._band.carry:])
