@@ -56,13 +56,29 @@ is printed):
    the float64 CPU run, the tier's THD pin on the 1 kHz stream); and the
    dispatch gate: 'auto' and 'pallas' launch the kernel, 'xla' and
    ``force_xla`` launch none and give the plain version's bits.
+9. General walk: 44.1 kHz -> 48.001 kHz HIGH (a non-exact ratio),
+   ``EngineCore`` with 256 streams of 10 s at block 2048, fed through
+   ``process()`` in random chunks, then ``flush()``: the exact length, one
+   K1 launch (the 2x prestage) a block step and no K2 or K3, 4 streams
+   against the float64 CPU engine, THD of a 1 kHz stream (<= -85 dB; <=
+   -120 dB with ``hq_interp``), the walk against the one-shot (K3) of
+   phase 6's general input, the banded emit against the gather emit on
+   one block's state, no K1 launch under ``force_xla``; K1 at the walk's
+   prestage shape against its plain version, timed beside it and
+   ``F.conv1d``; host and device time of warm steps (with ``--profile``
+   K1 apart from the emit).
+10. dft_up and cubic: 48 kHz -> 96 kHz HIGH through ``process_device`` /
+   ``flush_device`` (exact K1 launches) and through ``process()``, equal
+   bit for bit; 44.1 kHz -> 48 kHz QUICK (cubic, no kernel) through
+   ``process()``; 256 streams of 2 s each, lengths and 4 streams against
+   the float64 CPU engine.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after; launches made to compare a kernel with its plain version
 are not counted.  The phases run in the order 1, 2, 8 (kernels and
-one-shot), 3, 4, 8 (engines and gate), 5, 6, 7.  The last three lines are the card, the kernels as JSON,
-and ``{"ok": true, "device": {...}}``.  Every time printed is this card's,
-measured in this run.
+one-shot), 3, 4, 8 (engines and gate), 5, 6, 9, 10, 7.  The last three
+lines are the card, the kernels as JSON, and ``{"ok": true, "device":
+{...}}``.  Every time printed is this card's, measured in this run.
 """
 
 from __future__ import annotations
@@ -109,6 +125,14 @@ DECIM_STREAMS, DECIM_SAMPLES = 256, 313 * 1536
 DECIM_CARRY = 1350                  # round_up(1349 taps - 1, 3)
 #: One-shot phase: 64 streams of 2 s.
 ONESHOT_STREAMS, ONESHOT_SECONDS = 64, 2
+#: Walk phase: 44.1k -> 48.001k HIGH, the general streaming walk
+#: (bench.py:501-522), 256 streams of 10 s at block 2048; THD floors of
+#: its 1 kHz stream, default banks and hq_interp (tools/quality_tpu.py:
+#: thd_stream_44k_48k001_high_db, thd_stream_44k_48k001_hq_interp_db).
+WALK_OUT, WALK_STREAMS, WALK_BLOCK = 48001, 256, 2048
+THD_WALK_DB, THD_WALK_HQ_DB = -85.0, -120.0
+#: dft_up and cubic phase: 256 streams of 2 s.
+SMALL_STREAMS, SMALL_SECONDS = 256, 2
 
 
 def require(ok, what="check failed") -> None:
@@ -988,9 +1012,10 @@ def decim_path(gen, card: str) -> tuple[int, int]:
     return counts[1][0], counts[3][1]
 
 
-def oneshot_phase(gen, card: str) -> tuple[int, dict]:
+def oneshot_phase(gen, card: str) -> tuple[int, dict, tuple]:
     """64 streams x 2 s through ``oneshot`` for five topologies; returns
-    the K1 launches and the K3 launches of each K3 shape."""
+    the K1 launches, the K3 launches of each K3 shape, and the general
+    topology's input and output (the walk phase streams the same input)."""
     import importlib
     import torch
     from go_audio_resampler_tpu_torch import Quality, oneshot, plan_engine
@@ -1008,7 +1033,7 @@ def oneshot_phase(gen, card: str) -> tuple[int, dict]:
         ("48k->96k HIGH (dft_up, K1 through the banded convolution)",
          plan_engine(DECIM_IN, 96000, Quality.HIGH), (1, 0)),
     ]
-    k1_total, k3_by_shape = 0, {}
+    k1_total, k3_by_shape, general = 0, {}, None
     for name, plan, (want_k1, want_k3) in cases:
         n = ONESHOT_SECONDS * int(plan.input_rate)
         canonical = plan.lengths.canonical(n)
@@ -1053,6 +1078,8 @@ def oneshot_phase(gen, card: str) -> tuple[int, dict]:
         k1_total += k1
         if want_k3:
             k3_by_shape[name.split("(")[1].split(",")[0]] = k3
+        if name.startswith("44.1k->48.001k"):
+            general = (x, y)
         want = oneshot(plan, x[:4].cpu().double().numpy(), device="cpu")
         err = float(np.abs(y[:4].cpu().double().numpy()
                            - want.numpy()).max())
@@ -1090,7 +1117,349 @@ def oneshot_phase(gen, card: str) -> tuple[int, dict]:
             print(f"  one-shot {name}: {ms:.5f} ms, {count:g} per call: "
                   f"{key[:80]}")
         require(err <= ENGINE_TOL, f"{name}: {err} > {ENGINE_TOL}")
-    return k1_total, k3_by_shape
+    return k1_total, k3_by_shape, general
+
+
+# -- the general walk, dft_up and cubic --------------------------------------
+
+
+def walk_launches(plan, n: int, block: int) -> int:
+    """K1 launches of the general walk fed ``n`` samples through
+    ``process``, then flushed: one a block step, the flush's tail blocks
+    and its extra zero blocks (fed while the core has not reached the
+    canonical count) included."""
+    lm = plan.lengths
+    rem = n % block
+    fed = n - rem + -(-(rem + lm.flush_pad(n)) // block) * block
+    while lm.core_emitted(fed) < lm.canonical(n):
+        fed += block
+    return fed // block
+
+
+def host_run(eng, x_np, rng, block: int) -> tuple[np.ndarray, float, int]:
+    """``x_np`` through ``eng.process`` in random chunks of 1 to 3 blocks,
+    then ``flush``: the output, the wall time (s; the outputs' final
+    concatenation not included) and the chunks."""
+    n = x_np.shape[1]
+    outs, at, chunks = [], 0, 0
+    t0 = time.perf_counter()
+    while at < n:
+        w = int(rng.integers(1, 3 * block + 1))
+        outs.append(eng.process(x_np[:, at:at + w]))
+        at += w
+        chunks += 1
+    outs.append(eng.flush())
+    wall = time.perf_counter() - t0
+    return np.concatenate(outs, axis=1), wall, chunks
+
+
+def walk_prestage_kernel(eng, x) -> dict:
+    """K1 at the walk's prestage shape (``_conv_banded`` with the engine's
+    operator) against its plain version, timed beside it and ``F.conv1d``
+    (stride 1, F = 2), with its bounds; and under ``force_xla``: no
+    launch, the plain version's bits."""
+    import torch
+    import torch.nn.functional as F
+    from go_audio_resampler_tpu_torch.ops import convolve, fused, precision
+
+    band = eng._pre_band(WALK_BLOCK)
+    coeffs = eng.pre_coeffs
+    t1 = coeffs.shape[1]
+    xext = x[:, :t1 - 1 + WALK_BLOCK].contiguous()
+    s = xext.shape[0]
+    wx, p2 = band.r_t.shape
+    nf = WALK_BLOCK // band.p
+    require((band.p, wx, p2, nf) == (128, 127 + t1, 256, 16),
+            f"walk prestage band: period {band.p}, R_t {(wx, p2)}")
+    kw = dict(ipx=band.p, wx=wx, p2=p2, n_frames=nf, tier="highest")
+    weight = coeffs[:, None, :].contiguous()              # [2, 1, T1]
+    lib_in = xext[:, None, :]
+
+    def kernel():
+        return convolve._conv_banded(xext, coeffs, 1, interleaved=True,
+                                     band=band, tier="highest")
+
+    def plain():
+        return fused.fused_resample_reference(xext, band.r_t, **kw)
+
+    reset_launches()
+    y = kernel()
+    launched = launch_counts()
+    ref = plain()
+    lib = F.conv1d(lib_in, weight).transpose(1, 2).reshape(s, -1)
+    reset_launches()
+    with precision.force_xla():
+        forced = kernel()
+    torch.cuda.synchronize()
+    forced_launches = launch_counts()
+    err = (y - ref).abs().max().item()
+    lib_err = (lib - y).abs().max().item()
+    same = torch.equal(forced, ref)
+    print(f"  K1 walk prestage: data {tuple(xext.shape)}, R_t {(wx, p2)}, "
+          f"{nf} frames, ipx {band.p}, split {band.op.split}: max |kernel - "
+          f"plain| = {err:.3g}, max |kernel - F.conv1d| = {lib_err:.3g}; "
+          f"under force_xla {forced_launches} launches (K1, K2, K3), equal "
+          f"to the plain version's bits: {same}")
+    require(launched == (1, 0, 0) and tuple(y.shape) == (s, 2 * WALK_BLOCK),
+            f"K1 walk prestage: launches {launched}, {tuple(y.shape)}")
+    require(err <= KERNEL_TOL and lib_err <= KERNEL_TOL,
+            f"K1 walk prestage: {err}, library {lib_err}")
+    require(forced_launches == (0, 0, 0) and same,
+            f"walk prestage under force_xla: {forced_launches}, {same}")
+    timed = time_banded(
+        "K1 walk-prestage shape", kernel, plain,
+        {"library_conv1d_ms": lambda: F.conv1d(lib_in, weight)},
+        banded_cost(band.r_t, band.op, s * nf, s * xext.shape[1]))
+    return {**timed, "max_abs_err": err}
+
+
+def walk_step_times(eng, x, card: str, profile: bool, steps: int = 40):
+    """Warm steps of the walk on the card (``_step`` on device blocks, no
+    download): host enqueue and device span per step; with ``profile``,
+    each kernel's device time from ``torch.profiler``, K1 apart from the
+    emit's."""
+    import torch
+    blocks = [x[:, i * WALK_BLOCK:(i + 1) * WALK_BLOCK]
+              for i in range(steps)]
+    state = eng._init_state()
+
+    def run():
+        nonlocal state
+        for xb in blocks:
+            state, _, _ = eng._step(state, xb)
+
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    run()
+    t1 = time.perf_counter()
+    end.record()
+    end.synchronize()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    device = start.elapsed_time(end) / steps
+    print(f"  walk step: {steps} warm steps of {x.shape[0]} streams x "
+          f"{WALK_BLOCK}: host enqueue {(t1 - t0) / steps * 1e3:.5f} ms/step,"
+          f" wall {wall:.5f} ms/step, device span {device:.5f} ms/step on "
+          f"{card}")
+    if not profile:
+        return
+    kernels = device_kernels(run, 1)
+    k1 = sum(ms for name, ms, _ in kernels if "fused_resample_kernel" in name)
+    busy = sum(ms for _, ms, _ in kernels)
+    count = sum(c for _, _, c in kernels)
+    print(f"  profile, walk step: K1 {k1 / steps:.5f} ms/step, the emit and "
+          f"the rest {(busy - k1) / steps:.5f} ms/step, kernels busy "
+          f"{busy / steps:.5f} ms/step in {count / steps:g} launches under "
+          f"the profiler (device idle share "
+          f"{max(0.0, 1 - busy / steps / wall):.3f}) on {card}")
+    for name, ms, count in kernels:
+        print(f"  profile, walk step: {ms / steps:.5f} ms/step, "
+              f"{count / steps:g} per step: {name[:90]}")
+
+
+def walk_path(gen, card: str, general, profile: bool) -> dict:
+    """44.1k -> 48.001k HIGH, the general streaming walk: 256 streams x
+    10 s through ``EngineCore.process`` in random chunks, then ``flush``;
+    returns K1's launches and its record at the walk's prestage shape."""
+    import torch
+    from go_audio_resampler_tpu_torch import EngineCore, Quality, plan_engine
+    from go_audio_resampler_tpu_torch.engine import stages
+    from go_audio_resampler_tpu_torch.ops import precision
+    from go_audio_resampler_tpu_torch.utils import metrics, signals
+
+    plan = plan_engine(RATE_IN, WALK_OUT, Quality.HIGH)
+    eng = EngineCore(plan, batch=WALK_STREAMS, block=WALK_BLOCK)
+    require(plan.kind == "two_stage" and not plan.is_rational_exact
+            and eng.block == WALK_BLOCK and eng.device_chunk_multiple is None,
+            f"walk plan {plan.kind}, block {eng.block}")
+    n = RATE_IN * SECONDS
+    x = 0.5 * torch.randn((WALK_STREAMS, n), generator=gen, device="cuda")
+    x[0] = torch.as_tensor(signals.sine(n, 1000.0, RATE_IN),
+                           dtype=torch.float32, device="cuda")
+    x_np = x.cpu().numpy()
+    # Warm steps first (also the run's warm-up: the emit's first launches
+    # load their kernels and the matmul library).
+    walk_step_times(eng, x, card, profile)
+    rng = np.random.default_rng(7)
+    canonical = plan.lengths.canonical(n)
+    expected = walk_launches(plan, n, eng.block)
+    reset_launches()
+    y, wall, chunks = host_run(eng, x_np, rng, eng.block)
+    launches = launch_counts()
+    require(y.shape == (WALK_STREAMS, canonical),
+            f"walk output {y.shape}, canonical {canonical}")
+    require(launches == (expected, 0, 0),
+            f"walk launches {launches}, expected ({expected}, 0, 0)")
+    require(bool(np.isfinite(y).all()), "walk: non-finite output")
+    ref = EngineCore(plan, batch=4, block=WALK_BLOCK, dtype=torch.float64,
+                     device="cpu")
+    want = np.concatenate([ref.process(x_np[:4].astype(np.float64)),
+                           ref.flush()], axis=1)
+    err = float(np.abs(y[:4] - want).max())
+    thd = metrics.thd(y[0].astype(np.float64), WALK_OUT, 1000.0, 16384)
+    hq = EngineCore(plan_engine(RATE_IN, WALK_OUT, Quality.HIGH,
+                                hq_interp=True), batch=1, block=WALK_BLOCK)
+    y_hq = host_run(hq, x_np[:1], rng, hq.block)[0]
+    thd_hq = metrics.thd(y_hq[0].astype(np.float64), WALK_OUT, 1000.0, 16384)
+    print(f"  walk: {WALK_STREAMS} streams x {n} samples through process() "
+          f"in {chunks} random chunks in {wall:.4f} s = "
+          f"{WALK_STREAMS * n / wall / 1e6:.1f} Msamples/s in, {expected} "
+          f"steps ({wall / expected * 1e3:.4f} ms each, host and transfers "
+          f"included), launches (K1, K2, K3) {launches}, poly_cap "
+          f"{eng.poly_cap}, history {eng.hist_size} on {card}")
+    print(f"  walk: length {y.shape[1]} == canonical {canonical}; max |cuda "
+          f"f32 - cpu f64| over 4 streams = {err:.3g}; THD of the 1 kHz "
+          f"stream = {thd:.2f} dB (floor {THD_WALK_DB}), with hq_interp "
+          f"{thd_hq:.2f} dB (floor {THD_WALK_HQ_DB})")
+    require(err <= ENGINE_TOL, f"walk vs float64: {err} > {ENGINE_TOL}")
+    require(thd <= THD_WALK_DB, f"walk THD {thd} dB > {THD_WALK_DB} dB")
+    require(thd_hq <= THD_WALK_HQ_DB,
+            f"walk hq_interp THD {thd_hq} dB > {THD_WALK_HQ_DB} dB")
+    del y, want
+
+    # The one-shot phase's general input (its K3 output) through the walk.
+    xg, yg = general
+    w = EngineCore(plan, batch=xg.shape[0], block=WALK_BLOCK)
+    ys = host_run(w, xg.cpu().numpy(), rng, w.block)[0]
+    vs_oneshot = float(np.abs(ys - yg.cpu().numpy()).max())
+    print(f"  walk vs one-shot (K3) of the same [{xg.shape[0]}, "
+          f"{xg.shape[1]}] input: lengths {ys.shape[1]} and {yg.shape[1]}, "
+          f"max |walk - one-shot| = {vs_oneshot:.3g}")
+    require(ys.shape == tuple(yg.shape) and vs_oneshot <= ENGINE_TOL,
+            f"walk vs one-shot: {ys.shape}, {tuple(yg.shape)}, {vs_oneshot}")
+
+    # One block's state: the banded emit against the gather emit.
+    e2 = EngineCore(plan, batch=WALK_STREAMS, block=WALK_BLOCK)
+    e2.process(x_np[:, :3 * WALK_BLOCK])
+    pre, poly = e2.state
+    _, u = stages.prestage_process(
+        e2.pre_coeffs, pre, x[:, 3 * WALK_BLOCK:4 * WALK_BLOCK],
+        plan.factor, "highest", band=e2._pre_band(WALK_BLOCK))
+    hl, m = poly.hist_len, u.shape[1]
+    hist = torch.cat([poly.hist[:, :hl], u, poly.hist[:, hl + m:]], dim=1)
+    args = (e2.banks, hist, hl + m, poly.at_hi, poly.at_lo, plan.num_phases,
+            plan.poly_taps, plan.step_hi, plan.step_lo, e2.poly_cap)
+    banded_y = stages.poly_emit(*args)
+    real = stages._banded_emit_on
+    stages._banded_emit_on = lambda h: False
+    try:
+        gather_y = stages.poly_emit(*args)
+    finally:
+        stages._banded_emit_on = real
+    emit_err = (banded_y[0] - gather_y[0]).abs().max().item()
+    print(f"  walk emit on one block's state: {banded_y[2]} outputs of "
+          f"{e2.poly_cap}; max |banded tiles - gather| = {emit_err:.3g}")
+    require(banded_y[2:] == gather_y[2:] and banded_y[2] > 0
+            and torch.equal(banded_y[1], gather_y[1])
+            and emit_err <= KERNEL_TOL,
+            f"walk emit lowerings: counts {banded_y[2:]} and "
+            f"{gather_y[2:]}, error {emit_err}")
+
+    # The gate: under force_xla the prestage launches nothing.
+    xs = x_np[:64, :20 * WALK_BLOCK]
+    runs = {}
+    for mode in ("kernel", "force_xla"):
+        e = EngineCore(plan, batch=64, block=WALK_BLOCK)
+        reset_launches()
+        with (precision.force_xla() if mode == "force_xla"
+              else contextlib.nullcontext()):
+            yy = np.concatenate([e.process(xs), e.flush()], axis=1)
+        runs[mode] = (yy, launch_counts())
+    gate_err = float(np.abs(runs["kernel"][0] - runs["force_xla"][0]).max())
+    print(f"  walk gate: launches (K1, K2, K3) {runs['kernel'][1]} with the "
+          f"kernel, {runs['force_xla'][1]} under force_xla; max |kernel run "
+          f"- plain run| = {gate_err:.3g}")
+    require(runs["kernel"][1][0] > 0 and runs["kernel"][1][1:] == (0, 0)
+            and runs["force_xla"][1] == (0, 0, 0) and gate_err <= ENGINE_TOL,
+            f"walk gate {runs['kernel'][1]}, {runs['force_xla'][1]}, "
+            f"{gate_err}")
+
+    record = walk_prestage_kernel(eng, x)
+    return {"launches": expected, "k1": record}
+
+
+def dft_cubic_phase(gen, card: str) -> int:
+    """48k -> 96k HIGH (dft_up, K1) through ``process_device`` /
+    ``flush_device`` and through ``process``, and 44.1k -> 48k QUICK
+    (cubic, no kernel) through ``process``, 256 streams x 2 s each;
+    returns the dft_up device run's K1 launches."""
+    import torch
+    from go_audio_resampler_tpu_torch import EngineCore, Quality, plan_engine
+
+    rng = np.random.default_rng(8)
+    plan = plan_engine(DECIM_IN, 96000, Quality.HIGH)
+    n = SMALL_SECONDS * DECIM_IN
+    canonical = plan.lengths.canonical(n)
+    x = 0.5 * torch.randn((SMALL_STREAMS, n), generator=gen, device="cuda")
+    x_np = x.cpu().numpy()
+    dev = EngineCore(plan, batch=SMALL_STREAMS, block=2048)
+    require(plan.kind == "dft_up" and dev.device_chunk_multiple == 1,
+            f"dft_up plan {plan.kind}")
+    chunks = [(a, min(n, a + 2048)) for a in range(0, n, 2048)]
+    expected = expected_launches(plan, n, len(chunks), 1, plan.factor,
+                                 dev.block, plan.lengths.drop_prefix())
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = [dev.process_device(x[:, a:b]) for a, b in chunks]
+    outs.append(dev.flush_device())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    y = torch.cat(outs, dim=1).cpu().numpy()
+    host = EngineCore(plan, batch=SMALL_STREAMS, block=2048)
+    reset_launches()
+    y_host, wall_h, n_chunks = host_run(host, x_np, rng, host.block)
+    host_launches = launch_counts()
+    ref = EngineCore(plan, batch=4, block=2048, dtype=torch.float64,
+                     device="cpu")
+    want = np.concatenate([ref.process(x_np[:4].astype(np.float64)),
+                           ref.flush()], axis=1)
+    err = float(np.abs(y[:4] - want).max())
+    same = bool(np.array_equal(y, y_host))
+    print(f"  dft_up 48k->96k HIGH: {SMALL_STREAMS} streams x {n} samples: "
+          f"process_device {SMALL_STREAMS * n / wall / 1e6:.1f} Msamples/s "
+          f"in ({launches[0]} K1 launches), process() in {n_chunks} random "
+          f"chunks {SMALL_STREAMS * n / wall_h / 1e6:.1f} Msamples/s in "
+          f"({host_launches[0]} K1 launches) on {card}")
+    print(f"  dft_up: length {y.shape[1]} == canonical {canonical}; "
+          f"process_device equal to process() bit for bit: {same}; max |cuda "
+          f"f32 - cpu f64| over 4 streams = {err:.3g}")
+    require(y.shape == y_host.shape == (SMALL_STREAMS, canonical),
+            f"dft_up outputs {y.shape}, {y_host.shape}, canonical {canonical}")
+    require(launches == (expected, 0, 0) and host_launches[0] > 0
+            and host_launches[1:] == (0, 0),
+            f"dft_up launches {launches} (expected {expected}), process() "
+            f"{host_launches}")
+    require(same, "dft_up: process_device and process() differ")
+    require(err <= ENGINE_TOL, f"dft_up vs float64: {err}")
+    del x, y, y_host
+
+    plan = plan_engine(RATE_IN, RATE_OUT, Quality.QUICK)
+    n = SMALL_SECONDS * RATE_IN
+    x_np = (0.5 * torch.randn((SMALL_STREAMS, n), generator=gen,
+                              device="cuda")).cpu().numpy()
+    eng = EngineCore(plan, batch=SMALL_STREAMS, block=2048)
+    reset_launches()
+    y, wall, n_chunks = host_run(eng, x_np, rng, eng.block)
+    cubic_launches = launch_counts()
+    ref = EngineCore(plan, batch=4, block=2048, dtype=torch.float64,
+                     device="cpu")
+    want = np.concatenate([ref.process(x_np[:4].astype(np.float64)),
+                           ref.flush()], axis=1)
+    err = float(np.abs(y[:4] - want).max())
+    print(f"  cubic 44.1k->48k QUICK: {SMALL_STREAMS} streams x {n} samples "
+          f"through process() in {n_chunks} random chunks: "
+          f"{SMALL_STREAMS * n / wall / 1e6:.1f} Msamples/s in, launches "
+          f"(K1, K2, K3) {cubic_launches}; length {y.shape[1]} == canonical "
+          f"{plan.lengths.canonical(n)}; max |cuda f32 - cpu f64| over 4 "
+          f"streams = {err:.3g} on {card}")
+    require(y.shape == (SMALL_STREAMS, plan.lengths.canonical(n))
+            and cubic_launches == (0, 0, 0) and err <= ENGINE_TOL,
+            f"cubic: {y.shape}, launches {cubic_launches}, error {err}")
+    return launches[0]
 
 
 
@@ -1495,8 +1864,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also profile warm steps of the main, "
-                         "time-major and decimation paths (where the time "
-                         "goes)")
+                         "time-major, decimation and general-walk paths "
+                         "(where the time goes)")
     args = ap.parse_args()
 
     import torch
@@ -1553,7 +1922,7 @@ def main() -> int:
     print("decimation path:")
     decim_k1, decim_k2 = decim_path(gen, card)
     print("one-shot:")
-    oneshot_k1, k3_by_shape = oneshot_phase(gen, card)
+    oneshot_k1, k3_by_shape, general = oneshot_phase(gen, card)
     k3["launches"] = sum(k3_by_shape.values())
     for shape, count in k3_by_shape.items():
         k3["shapes"][shape]["launches"] = count
@@ -1568,6 +1937,16 @@ def main() -> int:
     k1["shapes"]["decimation"]["launches"] = decim_k1
     k2["shapes"]["main"]["launches"] = k2["launches"]
     k2["shapes"]["decimation"]["launches"] = decim_k2
+    torch.cuda.empty_cache()
+    print("general walk:")
+    walk = walk_path(gen, card, general, args.profile)
+    del general
+    k1["shapes"]["walk_prestage"] = {**walk["k1"],
+                                     "launches": walk["launches"]}
+    print("dft_up and cubic:")
+    dft_k1 = dft_cubic_phase(gen, card)
+    print(f"  launches by path: K1 {walk['launches']} (general walk), "
+          f"{dft_k1} (dft_up stream); cubic none")
     print("chunking:")
     chunking_phase(args.seed)
     if args.profile:

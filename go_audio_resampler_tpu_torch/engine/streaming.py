@@ -1,21 +1,33 @@
 """Streaming engine: stateful Process/Flush over fixed-size blocks.
 
-PyTorch counterpart of the JAX package's ``engine/streaming.py``.  Two
-topologies are ported, both streaming one periodic banded operator
-through the fused banded step, i.e. the K1 kernel (``ops/fused.py``) on
-the card: exact-rational two-stage plans (e.g. 44.1k <-> 48k), and
-integer decimation (e.g. 48k -> 16k, the ML-ingest path).
+PyTorch counterpart of the JAX package's ``engine/streaming.py``.  The
+topologies, each with its step:
 
-The device side is one plain function ``(carry, block) -> (carry', y, n)``
-with static output counts; the host wrapper feeds whole blocks from an
-input FIFO, so arbitrary chunk sizes stream through it.  Each output
-sample is one fixed-order dot product over the input, so the emitted
-stream depends only on the concatenated input, not on how it was chunked.
+- exact-rational two-stage plans (e.g. 44.1k <-> 48k) and integer
+  decimation (e.g. 48k -> 16k, the ML-ingest path): one periodic banded
+  operator streamed through the fused banded step, i.e. the K1 kernel
+  (``ops/fused.py``) on the card, with static output counts;
+- the general two-stage walk (non-exact ratios, e.g. 44.1k -> 48.001k):
+  the 2x polyphase prestage (K1, through ``ops/convolve.py``'s banded
+  lowering), then the interpolated-coefficient polyphase emit
+  (``stages.poly_emit``), whose output counts depend on the walk;
+- cubic interpolation (every QUICK plan): the 32-bit walk and the 4-point
+  Hermite kernel (``stages.cubic_process``), no matmul;
+- integer upsampling (``dft_up``, e.g. 48k -> 96k): the prestage alone
+  (K1), with static counts; a factor of 1 passes the input through.
+
+Each step is one plain function ``(state, block) -> (state', y, n)``; the
+host wrapper feeds whole blocks from an input FIFO, so arbitrary chunk
+sizes stream through it.  Each output sample is one fixed-order dot
+product over the input, so the emitted stream depends only on the
+concatenated input, not on how it was chunked.
 
 Each engine runs its products at one matmul tier (``precision``,
-resolved once when it is built; ``ops/precision.py``) and routes each step
-through the dispatch gate (``dispatch``): the kernel, or its plain
-version.
+resolved once when it is built; ``ops/precision.py``) and routes each
+fused banded step through the dispatch gate (``dispatch``): the kernel,
+or its plain version.  The prestage follows the gate at the tier, as the
+JAX package's does, and takes K1's plain version inside
+``precision.force_xla``.
 
 Flush follows the reference's orchestration (resampler.go:275-322) via
 the length model: the engine feeds the zero padding that drains every
@@ -29,13 +41,19 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import banded, fused
+from ..ops import banded, convolve, fused
 from ..ops.precision import (DISPATCH_MODES, PRECISION_MODES, dispatch_for,
                              dot_precision)
 from ..pipeline.buffer import SampleFIFO
-from .oneshot import (DECIM_FFT_MIN_TAPS, _FFT_DECIM, _decim_matrix,
-                      _fused_rational_matrix, superframe)
+from . import stages
+from .oneshot import (DECIM_FFT_MIN_TAPS, _FFT_DECIM, _STRICT_AA,
+                      _decim_matrix, _fused_rational_matrix, superframe)
 from .plan import EnginePlan
+from .stages import CubicState, PolyState, PrestageState
+
+#: The int32 bound of the walks' limbs in the JAX package: a step's output
+#: cap stays below 2^15, so that j * (a 16-bit limb) stays below 2^31.
+CAP_LIMIT = 32767
 
 #: The JAX engine's measured choice of lowering, not ported yet.
 _TUNE = ("dispatch='tune' is not ported yet (ROADMAP.md, queue 1: "
@@ -176,19 +194,27 @@ class EngineCore:
 
     The reference processes channels with one goroutine each
     (constant.go:224-241); here all ``batch`` streams ride the leading
-    tensor axis through one kernel launch per step.
+    tensor axis through one step per block.
+
+    Topologies: exact-rational two-stage plans and integer decimation
+    (the fused banded step, K1), the general two-stage walk of non-exact
+    ratios (K1 prestage, then the polyphase emit), cubic (QUICK plans;
+    no kernel) and integer upsampling (``dft_up``; K1).  The
+    strict-antialias prefilter of non-exact plans, banded composites and
+    FFT-routed decimation raise ``NotImplementedError``.
 
     Parameters:
-      plan:   built engine plan (filters + topology); the port runs
-              exact-rational two-stage plans and integer decimation
+      plan:   built engine plan (filters + topology)
       batch:  number of parallel streams S
-      block:  internal micro-block size B (input samples per step), rounded
-              up to a multiple of the operator's input period
+      block:  internal micro-block size B (input samples per step): for
+              the fused banded steps rounded up to a multiple of the
+              operator's input period; for the walks halved until a step's
+              output cap fits the walks' 15-bit bound
       dtype:  compute dtype: float32 (the only type the CUDA kernel takes)
               or float64 (CPU parity runs)
       dispatch: 'auto' or 'pallas' (the K1 kernel on CUDA, its plain
-              version on the CPU), or 'xla' (the plain version on either);
-              'tune' is not ported
+              version on the CPU), or 'xla' (the plain version on either)
+              for the fused banded steps; 'tune' is not ported
       precision: the matmul tier of float32 steps: 'highest' (float32-
               accurate), 'high' (three bf16 passes), 'default' (one bf16
               pass), or 'auto' (GAR_TPU_MATMUL_PRECISION, read when the
@@ -199,8 +225,9 @@ class EngineCore:
               version on the CPU.
     """
 
-    #: blocks per step when process() has many buffered blocks; one launch
-    #: then covers them all (bit-identical to block-by-block steps)
+    #: blocks per step when process() has many buffered blocks: the static-
+    #: count topologies run them as one step (bit-identical to block-by-
+    #: block steps), the walks block by block within one call
     SCAN_BLOCKS = 8
 
     def __init__(self, plan: EnginePlan, batch: int = 1, block: int = 2048,
@@ -228,26 +255,38 @@ class EngineCore:
 
     # -- construction ------------------------------------------------------
 
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                               device=self.device)
+
     def _build_constants(self):
         p = self.plan
+        self._band = None
+        self._drop_override = None
+        if p.kind == 'two_stage' and not p.is_rational_exact:
+            self._build_walk()
+            return
+        if p.kind == 'cubic':
+            self._build_cubic()
+            return
+        if p.kind == 'dft_up':
+            self._pre_bands = {}
+            if p.factor > 1:
+                self.pre_coeffs = self._tensor(p.pre_coeffs)
+                self._pre_band(self.block)
+            return
         if p.kind == 'decimate':
             if p.decim_taps >= DECIM_FFT_MIN_TAPS:
                 raise NotImplementedError(f"EngineCore: {_FFT_DECIM}")
             r, _, ipx = _decim_matrix(p)
-        elif p.kind == 'two_stage' and p.is_rational_exact:
+        elif p.kind == 'two_stage':
             # Fused streaming: the whole cascade as one periodic banded
             # matmul (oneshot._fused_rational_matrix).
             r, _, ipx, lam = _fused_rational_matrix(p)
         else:
-            where = {
-                'cubic': "queue 1 item 1, the cubic topology",
-                'dft_up': "queue 1 item 1, the dft_up topology",
-                'banded': "queue 1 item 3, the banded composite",
-                'two_stage': "queue 1 item 1, the non-exact two-stage walk",
-            }.get(p.kind, "queue 1")
             raise NotImplementedError(
                 f"EngineCore: topology {p.kind!r} is not ported yet "
-                f"(ROADMAP.md, {where})")
+                "(ROADMAP.md, queue 1 item 3, the banded composite)")
         # Bound the per-block frames-overlap read amplification; the
         # super-period is capped near the requested block so streaming
         # latency stays at the caller's scale.
@@ -271,15 +310,120 @@ class EngineCore:
         self._band = Band(r_t, ipx, wx, p2, carry,
                           banded.prepare_on_card(r_t, self._tier))
 
-    def _init_state(self) -> torch.Tensor:
-        return torch.zeros((self.batch, self._band.carry),
-                           dtype=self.dtype, device=self.device)
+    def _build_walk(self):
+        """The general two-stage walk's constants (the JAX engine's
+        ``poly_cap``, ``poly_keep`` and ``hist_size``)."""
+        p = self.plan
+        if p.aa_taps > 0:
+            raise NotImplementedError(f"EngineCore: {_STRICT_AA}")
+        self.pre_coeffs = self._tensor(p.pre_coeffs)
+        self.banks = tuple(self._tensor(b) for b in
+                           (p.bank_a, p.bank_b, p.bank_c, p.bank_d))
+
+        def cap(block):
+            return _ceil_div(block * p.factor * p.num_phases * 65536,
+                             p.step) + 1
+
+        # The walk's limbs stay within the JAX package's int32 bounds: a
+        # step emits at most CAP_LIMIT outputs.
+        while cap(self.block) > CAP_LIMIT:
+            if self.block <= 1:
+                raise ValueError(
+                    f"EngineCore: the walk's step {p.step} emits "
+                    f"{cap(self.block)} > {CAP_LIMIT} outputs from a single "
+                    "input sample; no block fits the walk's bound")
+            self.block //= 2
+        m = self.block * p.factor
+        self.poly_cap = cap(self.block)
+        # keep = residual history bound (the JAX package's poly_process)
+        step_in = _ceil_div(p.step, p.num_phases * 65536)
+        self.poly_keep = p.poly_taps + step_in + 2
+        self.hist_size = self.poly_keep + m + p.lengths.core_delta()
+        self._pre_bands = {}
+        self._pre_band(self.block)
+
+    def _build_cubic(self):
+        p = self.plan
+        self.cubic_cap = _ceil_div(self.block << 32, p.cubic_step) + 1
+        # The same bound as the walk's; a block of 1 keeps its cap.
+        while self.cubic_cap > CAP_LIMIT and self.block > 1:
+            self.block //= 2
+            self.cubic_cap = _ceil_div(self.block << 32, p.cubic_step) + 1
+
+    def _pre_band(self, width: int) -> convolve.ConvBand | None:
+        """The prestage's K1 operator for steps of ``width`` input
+        samples: one per band period (``min(128, width)``), built and
+        prepared at the engine's tier on first use; None on the CPU, whose
+        lowering reads the coefficients."""
+        if self.device.type != 'cuda':
+            return None
+        t1 = self.plan.pre_taps
+        period = convolve._band_period(t1 - 1 + width, t1, 1)
+        band = self._pre_bands.get(period)
+        if band is None:
+            band = convolve.band_operator(self.pre_coeffs, t1 - 1 + width, 1,
+                                          self.dtype, self.device,
+                                          self._tier)
+            self._pre_bands[period] = band
+        return band
+
+    def _init_state(self):
+        p, s, d, dev = self.plan, self.batch, self.dtype, self.device
+        if self._band is not None:
+            return torch.zeros((s, self._band.carry), dtype=d, device=dev)
+        if p.kind == 'cubic':
+            return CubicState(carry=torch.zeros((s, 3), dtype=d, device=dev),
+                              at_int=0, at_f1=0, at_f0=0)
+        pre = PrestageState(carry=torch.zeros(
+            (s, max(p.pre_taps - 1, 0)), dtype=d, device=dev))
+        if p.kind == 'dft_up':
+            return pre
+        return (pre, PolyState(
+            hist=torch.zeros((s, self.hist_size), dtype=d, device=dev),
+            hist_len=0, at_hi=p.at0 >> 16, at_lo=p.at0 & 0xFFFF))
 
     def _step(self, state, x):
-        r_t, ipx, wx, p2, _, op = self._band
-        return _fused_banded_step(r_t, state, x, ipx=ipx, wx=wx, p2=p2,
-                                  op=op, dispatch=self.dispatch,
-                                  tier=self._tier)
+        """One step ``(state, x) -> (state', y, n)``: ``y[:, :n]`` are the
+        core's outputs.  The walks step block by block over ``x``."""
+        p = self.plan
+        if self._band is not None:
+            r_t, ipx, wx, p2, _, op = self._band
+            return _fused_banded_step(r_t, state, x, ipx=ipx, wx=wx, p2=p2,
+                                      op=op, dispatch=self.dispatch,
+                                      tier=self._tier)
+        if p.kind == 'dft_up':
+            if p.factor == 1:
+                # unity ratio: pass-through (dft_stage.go:57-59)
+                return state, x, x.shape[1]
+            state, u = stages.prestage_process(
+                self.pre_coeffs, state, x, p.factor, self._tier,
+                band=self._pre_band(x.shape[1]))
+            return state, u, u.shape[1]
+        ys, n = [], 0
+        for a in range(0, x.shape[1], self.block):
+            blk = x[:, a:a + self.block]
+            if p.kind == 'cubic':
+                state, y, _, k = stages.cubic_process(state, blk,
+                                                      p.cubic_step,
+                                                      self.cubic_cap)
+            else:
+                state, y, k = self._walk_step(state, blk)
+            ys.append(y[:, :k])
+            n += k
+        return state, (torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]), n
+
+    def _walk_step(self, state, x):
+        """One block of the general walk: the prestage (K1 on the card),
+        then the polyphase emit."""
+        p = self.plan
+        pre, poly = state
+        pre, u = stages.prestage_process(self.pre_coeffs, pre, x, p.factor,
+                                         self._tier,
+                                         band=self._pre_band(x.shape[1]))
+        poly, y, _, n = stages.poly_process(
+            self.banks, poly, u, p.num_phases, p.poly_taps, p.step_hi,
+            p.step_lo, self.poly_cap, self._tier)
+        return (pre, poly), y, n
 
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -303,7 +447,12 @@ class EngineCore:
 
         ``carry`` is [batch, carry length], as the carry the engine would
         hold after some input.  Lets two engines start from one state.
+        Only the fused banded steps' state is one carry.
         """
+        if self._band is None:
+            raise NotImplementedError(
+                f"set_carry: the {self.plan.kind!r} topology's state is not "
+                "one carry")
         carry = np.asarray(carry)
         want = (self.batch, self._band.carry)
         if carry.shape != want:
@@ -314,9 +463,16 @@ class EngineCore:
         self.state, y, n = self._step(self.state, self._to_device(block_np))
         return y[:, :n].cpu().numpy()
 
+    def _drop(self) -> int:
+        """Leading core outputs the wrapper drops: the fused steps' ramp,
+        else the length model's transient prefix (dft_up's)."""
+        if self._drop_override is not None:
+            return self._drop_override
+        return self.plan.lengths.drop_prefix()
+
     def _emit(self, core_out: np.ndarray, limit: int | None) -> np.ndarray:
         """Apply the transient-prefix drop and the canonical limit."""
-        drop = self._drop_override
+        drop = self._drop()
         start = 0
         if self._core_emitted < drop:
             start = min(drop - self._core_emitted, core_out.shape[1])
@@ -358,13 +514,22 @@ class EngineCore:
     # -- device-resident streaming (serving / ML-ingest path) ---------------
 
     @property
-    def device_chunk_multiple(self) -> int:
-        """Input-chunk granularity for :meth:`process_device`: the fused
-        operator's input period."""
-        return self._band.ipx
+    def device_chunk_multiple(self) -> int | None:
+        """Input-chunk granularity for :meth:`process_device`.
+
+        The fused operator's input period for the banded steps, 1 for the
+        DFT upsample; ``None`` when the topology has data-dependent output
+        counts (cubic, the non-exact walk) and only :meth:`process` is
+        available.
+        """
+        if self._band is not None:
+            return self._band.ipx
+        return 1 if self.plan.kind == 'dft_up' else None
 
     def _device_params(self) -> tuple[int, int]:
         """(input period, outputs per period) for the static-count step."""
+        if self._band is None:
+            return 1, self.plan.factor
         return self._band.ipx, self._band.p2
 
     def _emit_device(self, core_out: torch.Tensor, n_out: int,
@@ -374,7 +539,7 @@ class EngineCore:
         All slice bounds are host-known (static counts), so nothing here
         synchronizes with the device.
         """
-        drop = self._drop_override
+        drop = self._drop()
         start = 0
         if self._core_emitted < drop:
             start = min(drop - self._core_emitted, n_out)
@@ -398,6 +563,10 @@ class EngineCore:
         whenever no host-side input is buffered there.
         """
         mult = self.device_chunk_multiple
+        if mult is None:
+            raise NotImplementedError(
+                f"process_device: topology {self.plan.kind!r} has "
+                "data-dependent output counts; use process()")
         if self._flushed:
             raise RuntimeError("process() after flush(); call reset() first")
         if self._pending.available():
@@ -431,6 +600,10 @@ class EngineCore:
         with the device either.
         """
         mult = self.device_chunk_multiple
+        if mult is None:
+            raise NotImplementedError(
+                f"flush_device: topology {self.plan.kind!r} has "
+                "data-dependent output counts; use flush()")
         if self._flushed:
             return torch.zeros((self.batch, 0), dtype=self.dtype,
                                device=self.device)
@@ -485,15 +658,44 @@ class EngineCore:
         stream in order, ending with the flush tail; the concatenation
         equals ``process(all) + flush()``.  ``out='host'`` yields
         ``np.ndarray``; ``out='device'`` yields tensors on the engine's
-        device without downloading.
+        device without downloading.  Topologies without static output
+        counts (cubic, the non-exact walk) fall back to :meth:`process` and
+        :meth:`flush` for ``out='host'``.
         """
-        yield from pipelined_stream(self, chunks, out,
-                                    self.device_chunk_multiple)
+        if out not in ('host', 'device'):
+            raise ValueError(f"out must be 'host' or 'device', got {out!r}")
+        mult = self.device_chunk_multiple
+        if mult is None:
+            if out == 'device':
+                raise NotImplementedError(
+                    f"stream(out='device'): topology {self.plan.kind!r} "
+                    "has data-dependent output counts; use out='host'")
+            for x in chunks:
+                y = self.process(x)
+                if y.shape[1]:
+                    yield y
+            tail = self.flush()
+            if tail.shape[1]:
+                yield tail
+            return
+        yield from pipelined_stream(self, chunks, out, mult)
 
     def _flush_extra_limit(self) -> int:
-        """Max extra zero blocks flush may legally need (exact holdback):
-        the banded carry plus one window."""
-        hold = self._band.carry + self._band.wx
+        """Max extra zero blocks flush may legally need (exact holdback).
+
+        Per topology, the core's internal history bounds how much input it
+        can hold back without emitting: the banded carry plus one window
+        for the fused steps, ``hist_size`` for the general walk, the
+        prestage carry for DFT up, and the 3-sample window for cubic."""
+        p = self.plan
+        if self._band is not None:
+            hold = self._band.carry + self._band.wx
+        elif p.kind == 'cubic':
+            hold = 4
+        elif p.kind == 'dft_up':
+            hold = max(p.pre_taps - 1, 0)
+        else:
+            hold = self.hist_size
         return _ceil_div(hold, self.block) + 2
 
     def flush(self) -> np.ndarray:

@@ -663,3 +663,135 @@ def test_engines_at_each_tier(cuda, tier, rates_q):
     pallas = EngineCore(plan, dispatch="pallas", **kw)
     assert torch.equal(torch.cat([pallas.process_device(x),
                                   pallas.flush_device()], 1), y)
+
+
+# -- the general walk, cubic and dft_up ------------------------------------------
+
+WALK = (44100, 48001, Quality.HIGH)
+
+
+def _walk_state(engine, seed):
+    """The walk's polyphase state after a few blocks of noise, and the
+    walk's emit arguments."""
+    from go_audio_resampler_tpu_torch.engine import stages
+    x = np.random.default_rng(seed).normal(
+        size=(engine.batch, 3 * engine.block)).astype(np.float32)
+    engine.process(x)
+    pre, poly = engine.state
+    p = engine.plan
+    return stages, poly, (p.num_phases, p.poly_taps, p.step_hi, p.step_lo,
+                          engine.poly_cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rates_q", [WALK, (48000, 44099, Quality.HIGH),
+                                     (44100, 48001, Quality.HIGH, True)])
+def test_walk_banded_emit_matches_gather_emit(cuda, monkeypatch, rates_q):
+    """On the card the walk emits through the banded tiles; on one block's
+    state they agree with the per-output gather within 2e-5, with equal
+    counts."""
+    plan = plan_engine(*rates_q[:3], hq_interp=len(rates_q) > 3)
+    eng = EngineCore(plan, batch=256, block=2048)
+    stages, poly, args = _walk_state(eng, 30)
+    hist = poly.hist.clone()
+    hist[:, poly.hist_len:] = torch.randn(
+        (hist.shape[0], hist.shape[1] - poly.hist_len), device=cuda)
+    hist_len = poly.hist_len + 2 * 2048
+    hist = torch.cat([hist, torch.randn((256, 2 * 2048), device=cuda)], 1)
+    call = (eng.banks, hist, hist_len, poly.at_hi, poly.at_lo) + args
+    banded_out = stages.poly_emit(*call)
+    monkeypatch.setattr(stages, "_banded_emit_on", lambda h: False)
+    gather_out = stages.poly_emit(*call)
+    assert banded_out[2:] == gather_out[2:] and banded_out[2] > 1000
+    assert torch.equal(banded_out[1], gather_out[1])
+    assert (banded_out[0] - gather_out[0]).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+def test_k1_at_the_walk_prestage_shape(cuda):
+    """K1 at the walk's prestage shape (256 streams, T1-1 + 2048 samples,
+    period 128, 16 frames) against its plain version."""
+    plan = plan_engine(*WALK)
+    coeffs = torch.as_tensor(plan.pre_coeffs, dtype=torch.float32,
+                             device=cuda)
+    n = plan.pre_taps - 1 + 2048
+    band = convolve.band_operator(coeffs, n, 1, torch.float32, cuda,
+                                  "highest")
+    assert band.p == 128 and tuple(band.r_t.shape) == (127 + plan.pre_taps,
+                                                        256)
+    x = _data(256, n, cuda, 31)
+    before = fused.launches
+    u = convolve._conv_banded(x, coeffs, 1, interleaved=True, band=band,
+                              tier="highest")
+    torch.cuda.synchronize()
+    assert fused.launches == before + 1
+    ref = convolve._conv_frames(x, coeffs, 1, "highest").transpose(
+        1, 2).reshape(256, -1)
+    assert u.shape == ref.shape == (256, 2 * 2048)
+    assert (u - ref).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rates_q", [WALK, (48000, 96000, Quality.HIGH)])
+def test_prestage_operator_prepared_once_per_engine(cuda, monkeypatch,
+                                                    rates_q):
+    """The walk's and dft_up's prestage reads one prepared K1 operator per
+    band period, prepared when the engine is built: streaming and
+    flushing prepare nothing, and launch K1 once a step."""
+    calls = []
+    real = banded.prepare
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(banded, "prepare", counted)
+    eng = EngineCore(plan_engine(*rates_q), batch=4, block=2048)
+    assert len(calls) == 1
+    x = np.random.default_rng(32).normal(size=(4, 5 * 2048 + 99)).astype(
+        np.float32)
+    before = fused.launches
+    eng.process(x[:, :3000])
+    eng.process(x[:, 3000:])
+    eng.flush()
+    assert len(calls) == 1
+    assert fused.launches > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rates_q", [WALK, (48000, 44099, Quality.HIGH),
+                                     (44100, 48000, Quality.QUICK),
+                                     (48000, 96000, Quality.HIGH),
+                                     (48000, 192000, Quality.MEDIUM)])
+def test_walk_cubic_dft_up_engines_match_cpu_float64(cuda, rates_q):
+    """The walk (K1 prestage, banded emit), cubic (no kernel) and dft_up
+    (K1) on the card within 2e-5 of the float64 CPU engine; K1 launches
+    except for cubic, none under force_xla, whose output is the plain
+    version's."""
+    from go_audio_resampler_tpu_torch.ops import precision
+    plan = plan_engine(*rates_q)
+    x = np.random.default_rng(33).normal(size=(5, 9000)).astype(np.float32)
+    ref = EngineCore(plan, batch=5, block=BLOCK, dtype=torch.float64,
+                     device="cpu")
+    want = np.concatenate([ref.process(x.astype(np.float64)), ref.flush()],
+                          1)
+    before = fused.launches
+    dev = EngineCore(plan, batch=5, block=BLOCK)
+    got = np.concatenate([dev.process(x[:, :4000]), dev.process(x[:, 4000:]),
+                          dev.flush()], 1)
+    launched = fused.launches - before
+    assert (launched > 0) == (plan.kind != "cubic")
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= TOL
+    before = fused.launches
+    with precision.force_xla():
+        plain = EngineCore(plan, batch=5, block=BLOCK)
+        yp = np.concatenate([plain.process(x), plain.flush()], 1)
+    assert fused.launches == before
+    assert np.abs(yp - want).max() <= TOL
+    if plan.kind == "dft_up":
+        d = EngineCore(plan, batch=5, block=BLOCK)
+        yd = torch.cat([d.process_device(torch.from_numpy(x).to(cuda)),
+                        d.flush_device()], 1)
+        assert yd.shape == want.shape
+        assert np.abs(yd.cpu().numpy() - want).max() <= TOL

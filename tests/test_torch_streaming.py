@@ -1,9 +1,11 @@
 """PyTorch port vs JAX package: the streaming engine, end to end.
 
-The port's ``EngineCore`` runs on ``device='cpu'`` (its plain version of
-the K1 step) against the JAX package's ``EngineCore`` on the CPU, both fed
+The port's ``EngineCore`` runs on ``device='cpu'`` (the plain versions of
+its kernels) against the JAX package's ``EngineCore`` on the CPU, both fed
 the same numpy inputs: float64 to 1e-12, float32 to 2e-5, with identical
-output lengths.  The engine on the card is checked in
+output lengths, for every topology the port streams: the fused banded
+steps (exact-rational two-stage, decimation), the general walk of
+non-exact ratios, cubic and dft_up.  The engine on the card is checked in
 ``test_torch_cuda.py``.
 """
 
@@ -38,6 +40,13 @@ PLANS = [(44100, 48000, 3), (48000, 44100, 3), (44100, 48000, 4)]
 #: VERY_HIGH.
 DECIM_PLANS = [(48000, 16000, 3), (96000, 48000, 3), (48000, 16000, 4),
                (96000, 48000, 4)]
+#: The walk, cubic and dft_up rows of tests/test_engine_core.py's
+#: TOPOLOGIES (non-exact up, down and near-unity; both QUICK rows; integer
+#: upsampling x2 and x4), and the walk on the hq_interp banks.
+WALK_PLANS = [(44100, 48001, 3), (48000, 44099, 3), (44100, 44101, 2),
+              (44100, 48001, 3, {"hq_interp": True})]
+CUBIC_PLANS = [(44100, 48000, 0), (48000, 44100, 0)]
+DFT_PLANS = [(48000, 96000, 3), (48000, 192000, 2)]
 BATCH, BLOCK = 3, 512
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -45,7 +54,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _engines(rates_q, dtype, batch=BATCH, block=BLOCK):
     """The JAX engine and the port's, on one plan (carried across as
     arrays, so both run the very same filter bank)."""
-    jp = jplan_engine(rates_q[0], rates_q[1], JQuality(rates_q[2]))
+    jp = jplan_engine(rates_q[0], rates_q[1], JQuality(rates_q[2]),
+                      **(rates_q[3] if len(rates_q) > 3 else {}))
     tp = plan_from_arrays({f: getattr(jp, f)
                            for f in jp.__dataclass_fields__})
     return (JEngine(jp, batch=batch, block=block, dtype=dtype),
@@ -68,7 +78,8 @@ def _close(a, b, dtype):
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("rates_q", PLANS + DECIM_PLANS)
+@pytest.mark.parametrize("rates_q", PLANS + DECIM_PLANS + WALK_PLANS
+                         + CUBIC_PLANS + DFT_PLANS)
 def test_process_flush_random_chunks(rates_q, dtype):
     je, te = _engines(rates_q, dtype)
     assert te.block == je.block and te.get_latency() == je.get_latency()
@@ -90,7 +101,7 @@ def test_process_flush_random_chunks(rates_q, dtype):
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("rates_q", PLANS + DECIM_PLANS)
+@pytest.mark.parametrize("rates_q", PLANS + DECIM_PLANS + DFT_PLANS)
 def test_device_mode(rates_q, dtype):
     je, te = _engines(rates_q, dtype)
     mult = te.device_chunk_multiple
@@ -358,11 +369,8 @@ def test_default_device_without_cuda_raises():
 
 
 @pytest.mark.parametrize("rates,kw", [
-    ((44100, 48000, Quality.QUICK), {}),        # cubic
-    ((48000, 96000, Quality.HIGH), {}),         # dft_up
-    ((16000, 48000, Quality.HIGH), {}),         # dft_up, factor 3
-    ((44100, 48001, Quality.HIGH), {}),         # non-exact walk
     ((48000, 44100, Quality.HIGH), {"strict_antialias": True}),
+    ((48000, 44099, Quality.HIGH), {"strict_antialias": True}),  # the walk's
 ])
 def test_unported_topologies_raise(rates, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -432,3 +440,153 @@ def test_supported_precisions(precision):
     e = EngineCore(plan_engine(44100, 48000, Quality.HIGH), device="cpu",
                    precision=precision, dtype=torch.float64)
     assert e.dtype == torch.float64 and e.np_dtype == np.float64
+
+
+# -- the general walk, cubic and dft_up -----------------------------------------
+
+@pytest.mark.parametrize("rates_q", WALK_PLANS + CUBIC_PLANS + DFT_PLANS)
+def test_walk_cubic_dft_up_constants_match_jax(rates_q):
+    """The block after the walks' halving loops, the output caps, the
+    history sizes, the device granule, the flush bound and latency."""
+    je, te = _engines(rates_q, np.float32, block=2048)
+    for name in ("block", "poly_cap", "poly_keep", "hist_size",
+                 "cubic_cap"):
+        assert getattr(te, name, None) == getattr(je, name, None), name
+    assert te.device_chunk_multiple == je.device_chunk_multiple
+    assert te._flush_extra_limit() == je._flush_extra_limit()
+    assert te.get_latency() == je.get_latency()
+    if te.plan.kind == "dft_up":
+        assert te._device_params() == je._device_params() == (
+            1, te.plan.factor)
+    else:
+        assert te.device_chunk_multiple is None
+
+
+@pytest.mark.parametrize("rates_q", [WALK_PLANS[0], WALK_PLANS[1],
+                                     CUBIC_PLANS[0], DFT_PLANS[0]])
+def test_walk_cubic_dft_up_chunking_and_block_invariance(rates_q):
+    """Random chunk splits at block 512, one whole chunk at blocks 1000
+    and 4096: one canonical stream."""
+    x = np.random.default_rng(20).normal(size=(BATCH, 7000))
+    _, a = _engines(rates_q, np.float64)
+    rng = np.random.default_rng(21)
+    ya = np.concatenate([a.process(x[:, i:j])
+                         for i, j in _splits(rng, x.shape[1], 1500)]
+                        + [a.flush()], 1)
+    assert ya.shape[1] == a.plan.lengths.canonical(x.shape[1])
+    for block in (1000, 4096):
+        b = EngineCore(a.plan, batch=BATCH, block=block, dtype=np.float64,
+                       device="cpu")
+        assert b.block == block
+        _close(np.concatenate([b.process(x), b.flush()], 1), ya,
+               np.float64)
+
+
+@pytest.mark.parametrize("rates_q", [WALK_PLANS[0], CUBIC_PLANS[1]])
+def test_data_dependent_topologies_stream_on_the_host(rates_q):
+    """The walk and cubic have no static output counts: ``stream`` falls
+    back to process()/flush() on the host, the device modes raise."""
+    je, te = _engines(rates_q, np.float64)
+    assert te.device_chunk_multiple is None
+    chunks = [np.random.default_rng(22).normal(size=(BATCH, w))
+              for w in (100, 700, 5, 1500, 33)]
+    yj = np.concatenate([np.asarray(y) for y in je.stream(chunks)], 1)
+    got = list(te.stream(chunks))
+    assert all(isinstance(y, np.ndarray) for y in got)
+    _close(np.concatenate(got, 1), yj, np.float64)
+    te.reset()
+    z = torch.zeros((BATCH, 64), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="process_device: topology"
+                       ".*data-dependent output counts; use process"):
+        te.process_device(z)
+    with pytest.raises(NotImplementedError, match="flush_device: topology"
+                       ".*data-dependent output counts; use flush"):
+        te.flush_device()
+    with pytest.raises(NotImplementedError, match="stream.out='device'.: "
+                       "topology .*; use out='host'"):
+        list(te.stream(chunks, out="device"))
+    with pytest.raises(NotImplementedError, match="not one carry"):
+        te.set_carry(np.zeros((BATCH, 3)))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("rates_q", DFT_PLANS)
+def test_dft_up_process_device_equals_process(rates_q, dtype):
+    """dft_up streams with static counts: process_device/flush_device in
+    chunks of any width equal process()/flush() with random splits."""
+    x = np.random.default_rng(23).normal(size=(BATCH, 3000)).astype(dtype)
+    _, a = _engines(rates_q, dtype)
+    _, b = _engines(rates_q, dtype)
+    rng = np.random.default_rng(24)
+    ya = np.concatenate([a.process(x[:, i:j])
+                         for i, j in _splits(rng, 3000, 900)]
+                        + [a.flush()], 1)
+    yb = torch.cat([b.process_device(torch.from_numpy(x[:, i:j]))
+                    for i, j in ((0, 1024), (1024, 1031), (1031, 3000))]
+                   + [b.flush_device()], 1).numpy()
+    assert ya.shape == yb.shape == (BATCH, a.plan.lengths.canonical(3000))
+    _close(yb, ya, dtype)
+
+
+def test_dft_up_factor_one_passes_through():
+    te = EngineCore(plan_engine(48000, 48000, Quality.HIGH), batch=2,
+                    block=256, dtype=np.float64, device="cpu")
+    assert te.plan.kind == "dft_up" and te.plan.factor == 1
+    x = np.random.default_rng(25).normal(size=(2, 1000))
+    y = np.concatenate([te.process(x[:, :300]), te.process(x[:, 300:]),
+                        te.flush()], 1)
+    assert np.array_equal(y, x)
+    te.reset()
+    yd = torch.cat([te.process_device(torch.from_numpy(x)),
+                    te.flush_device()], 1)
+    assert np.array_equal(yd.numpy(), x)
+
+
+def _walk_default_bound(x_abs_max: float, plan) -> float:
+    """``precision.default_error_bound`` of the walk's two products: the
+    prestage's own, carried through the emit's coefficients, plus the
+    emit's on the prestage's output (|u| <= max|x| * the prestage's L1
+    norm; an interpolated coefficient row is at most |A|+|B|+|C|+|D|)."""
+    pre = np.asarray(plan.pre_coeffs).T                     # [T1, F]
+    rows = sum(np.abs(np.asarray(b)) for b in (
+        plan.bank_a, plan.bank_b, plan.bank_c, plan.bank_d)).T  # [T2, L]
+    l1_pre = float(np.abs(pre).sum(axis=0).max())
+    l1_poly = float(rows.sum(axis=0).max())
+    return (default_error_bound(x_abs_max, pre) * l1_poly
+            + default_error_bound(x_abs_max * l1_pre, rows))
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_walk_at_reduced_tiers(precision):
+    """The walk at 'high' within 3e-4 of max|y| of JAX's float64 run, at
+    'default' within bf16's roundoff bound; 'highest' is closer."""
+    rates_q = WALK_PLANS[0]
+    x = np.random.default_rng(26).normal(size=(BATCH, 4000)).astype(
+        np.float32)
+    je, te = _engines(rates_q, np.float64)
+    want = np.concatenate([np.asarray(je.process(x.astype(np.float64))),
+                           np.asarray(je.flush())], axis=1)
+    runs = {}
+    for tier in (precision, "highest"):
+        e = EngineCore(te.plan, batch=BATCH, block=BLOCK, dtype=np.float32,
+                       device="cpu", precision=tier)
+        runs[tier] = np.concatenate([e.process(x), e.flush()], axis=1)
+        assert runs[tier].shape == want.shape
+    err = np.abs(runs[precision] - want).max()
+    if precision == "high":
+        bound = 3e-4 * np.abs(want).max()
+    else:
+        bound = _walk_default_bound(float(np.abs(x).max()), te.plan)
+    assert err <= bound, (err, bound)
+    assert np.abs(runs["highest"] - want).max() < err
+
+
+def test_walk_block_guard():
+    """A walk whose single input sample would emit more than the walks'
+    bound raises, where the JAX engine's halving loop has no floor."""
+    src = plan_engine(44100, 48001, Quality.HIGH)      # a cached plan
+    plan = plan_from_arrays({f: getattr(src, f)
+                             for f in src.__dataclass_fields__})
+    plan.step = 1
+    with pytest.raises(ValueError, match="no block fits"):
+        EngineCore(plan, device="cpu")

@@ -266,3 +266,18 @@ def test_default_device_without_cuda_raises():
         pytest.skip("CUDA is available here: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TimeMajorEngine(plan_engine(44100, 48000, Quality.HIGH))
+
+
+@pytest.mark.parametrize("rates", [(44100, 48001, 3), (48000, 96000, 3),
+                                   (44100, 48000, 0)])
+def test_walk_cubic_dft_up_raise_with_the_jax_message(rates):
+    """``EngineCore`` runs the walk, cubic and dft_up; ``TimeMajorEngine``
+    refuses them with the JAX package's words."""
+    plan = plan_engine(rates[0], rates[1], Quality(rates[2]))
+    EngineCore(plan, batch=2, device="cpu")
+    with pytest.raises(NotImplementedError) as want:
+        JTimeMajor(jplan_engine(rates[0], rates[1], JQuality(rates[2])),
+                   batch=2)
+    with pytest.raises(NotImplementedError) as got:
+        TimeMajorEngine(plan, batch=2, device="cpu")
+    assert str(got.value) == str(want.value)
