@@ -72,11 +72,39 @@ is printed):
    bit for bit; 44.1 kHz -> 48 kHz QUICK (cubic, no kernel) through
    ``process()``; 256 streams of 2 s each, lengths and 4 streams against
    the float64 CPU engine.
+11. Strict antialias and banded composites, each K1 or K2 shape first
+   checked against its plain version (within 2e-5 of max|y|, at the step's
+   shape and a ragged one) and timed beside it, ``F.conv1d`` and
+   ``matmul`` on the ``unfold`` view:
+   A. 96 kHz -> 44.1 kHz HIGH, the banded composite the API fuses
+      (``fuse_chain`` of a 2x decimator and 48k -> 44.1k with the
+      prefilter; a 294-row head), 256 streams x 10 s through
+      ``EngineCore.process_device`` in 3200-sample blocks and through
+      ``process()`` in random chunks: exact length, the two routes equal
+      bit for bit, K1 launches derived from the block count and no K2 or
+      K3, 4 streams within 2e-5 of max|y| of the float64 CPU engine and
+      the first 294 outputs against the float64 head rows, THD of a 1 kHz
+      stream <= -130 dB, a 30 kHz tone rejected by >= 100 dB; warm steps
+      with each kernel's device time (``torch.profiler``);
+      ``TimeMajorEngine`` refuses it;
+   B. 48k -> 44.1k HIGH with the prefilter composed in, 1024 streams x
+      10 s: the same checks, THD <= -140 dB;
+   C. 192 kHz -> 48 kHz HIGH (head-free composite), 256 streams x 10.003 s
+      through ``TimeMajorEngine`` (K2, equal to K1 bit for bit at its
+      shape) and ``EngineCore``: equal within 2e-5 of max|y|, exact
+      lengths and launches, 4 streams against float64;
+   D. 48k -> 44.099k HIGH, the walk behind the prefilter, 256 streams x
+      2 s through ``process()``: K1 launches derived (the prefilter's and
+      the prestage's, each one a block), 4 streams against float64, the
+      stream within 5e-6 of max|y| of its one-shot;
+   E. ``oneshot`` of B (K1 with lam) and D (the prefilter on K1, then
+      K3), 64 streams x 2 s: exact launches, 4 streams against the
+      float64 CPU ``oneshot``.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after; launches made to compare a kernel with its plain version
 are not counted.  The phases run in the order 1, 2, 8 (kernels and
-one-shot), 3, 4, 8 (engines and gate), 5, 6, 9, 10, 7.  The last three
+one-shot), 3, 4, 8 (engines and gate), 5, 6, 9, 10, 11, 7.  The last three
 lines are the card, the kernels as JSON, and ``{"ok": true, "device":
 {...}}``.  Every time printed is this card's, measured in this run.
 """
@@ -133,6 +161,23 @@ WALK_OUT, WALK_STREAMS, WALK_BLOCK = 48001, 256, 2048
 THD_WALK_DB, THD_WALK_HQ_DB = -85.0, -120.0
 #: dft_up and cubic phase: 256 streams of 2 s.
 SMALL_STREAMS, SMALL_SECONDS = 256, 2
+#: Strict antialias and banded composites.  Path A: 96 kHz -> 44.1 kHz
+#: HIGH, the composite the API fuses (a 2x decimator, then 48k -> 44.1k
+#: with the prefilter), 256 streams of 10 s; its floors are those of
+#: thd_96k_48k_high_db and alias_rejection_96k_48k_db (QUALITY_tpu.json;
+#: tools/quality_tpu.py:80-94), the nearest HIGH floors for a 96 kHz input.
+COMP_IN, COMP_OUT, COMP_STREAMS = 96000, 44100, 256
+THD_COMP_DB, ALIAS_DB = -130.0, 100.0
+#: Path B: 48k -> 44.1k HIGH, the prefilter composed in, 1024 streams.
+STRICT_STREAMS = 1024
+#: Path C: 192 kHz -> 48 kHz HIGH (two 2x decimators, no head), 256
+#: streams of 1067 periods of 1800 input samples (10.003 s).
+C_STREAMS, C_SAMPLES = 256, 1067 * 1800
+#: Path D: 48k -> 44.099k HIGH, the walk behind the prefilter, 256
+#: streams of 2 s, held against its one-shot as the walk is (5e-6 of
+#: max|y|).
+D_OUT, D_STREAMS = 44099, 256
+WALK_VS_ONESHOT = 5e-6
 
 
 def require(ok, what="check failed") -> None:
@@ -1463,6 +1508,540 @@ def dft_cubic_phase(gen, card: str) -> int:
 
 
 
+# -- strict antialias and banded composites ----------------------------------
+
+
+def composite_plan(stages):
+    """The banded composite of a stage chain as the JAX package's API
+    fuses it (``api.Resampler._build_exec``): ``fuse_chain`` over 48
+    kHz-based stage plans (``(output rate, strict antialias)`` each), the
+    ratio their product, the latency their sum."""
+    from go_audio_resampler_tpu_torch import Quality, plan_engine
+    from go_audio_resampler_tpu_torch.pipeline import BandedPlan, fuse_chain
+    plans = [plan_engine(48000, out, Quality.HIGH, strict_antialias=aa)
+             for out, aa in stages]
+    ratio = 1.0
+    for p in plans:
+        ratio *= float(p.ratio)
+    return BandedPlan(fuse_chain(plans), ratio,
+                      latency=sum(p.latency() for p in plans))
+
+
+def k1_engine_shape(label: str, eng, gen, streams: int) -> dict:
+    """K1 at an engine's step (``streams`` x [carry ++ block] against the
+    engine's prepared operator) and at a ragged shape, each against its
+    plain version within 2e-5 of max|y|; then timed beside it, ``F.conv1d``
+    and ``matmul`` on the ``unfold`` view, with its bounds."""
+    import torch
+    import torch.nn.functional as F
+    from go_audio_resampler_tpu_torch.ops import fused
+
+    r_t, ipx, wx, p2, carry, op = eng._band
+    nf = eng.block // ipx
+    errs = []
+    for s, frames, extra in ((streams, nf, carry + eng.block
+                              - ((nf - 1) * ipx + wx)), (5, 3, 7)):
+        x = torch.randn((s, (frames - 1) * ipx + wx + extra), generator=gen,
+                        device="cuda")
+        kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=frames, tier="highest")
+        y = fused.fused_resample(x, r_t, op=op, **kw)
+        ref = fused.fused_resample_reference(x, r_t, **kw)
+        torch.cuda.synchronize()
+        err = (y - ref).abs().max().item() / ref.abs().max().item()
+        print(f"  K1 {label}: data {tuple(x.shape)}, R_t {(wx, p2)}, {frames}"
+              f" frames, ipx {ipx}, split {op.split}: max |kernel - plain| "
+              f"= {err:.3g} of max|y|")
+        require(y.shape == (s, frames * p2) and err <= KERNEL_TOL,
+                f"K1 {label}: {tuple(y.shape)}, error {err}")
+        errs.append(err)
+    x = torch.randn((streams, carry + eng.block), generator=gen,
+                    device="cuda")
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=nf, tier="highest")
+    weight = r_t.t().contiguous()[:, None, :]
+    lib_in = x[:, None, :(nf - 1) * ipx + wx].contiguous()
+    frames_v = x.unfold(1, wx, ipx)[:, :nf]
+    timed = time_banded(
+        f"K1 {label} shape", lambda: fused.fused_resample(x, r_t, op=op, **kw),
+        lambda: fused.fused_resample_reference(x, r_t, **kw),
+        {"library_conv1d_ms": lambda: F.conv1d(lib_in, weight, stride=ipx),
+         "library_matmul_ms": lambda: torch.matmul(frames_v, r_t)},
+        banded_cost(r_t, op, streams * nf, streams * ((nf - 1) * ipx + wx)))
+    return {**timed, "max_abs_err": max(errs)}
+
+
+def device_run(eng, x, chunks, canonical: int) -> tuple:
+    """``x`` through ``eng.process_device`` in ``chunks``, then
+    ``flush_device`` (the outputs' memory reserved beforehand): the
+    output, the wall time (s) and the (K1, K2, K3) launches."""
+    import torch
+    torch.empty((x.shape[0], canonical + eng.block), device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = [eng.process_device(x[:, a:b]) for a, b in chunks]
+    outs.append(eng.flush_device())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return torch.cat(outs, dim=1), wall, launch_counts()
+
+
+def float64_run(plan, x4: np.ndarray, block: int) -> np.ndarray:
+    """The port's float64 CPU engine on ``x4``, as one chunk, then flushed."""
+    import torch
+    from go_audio_resampler_tpu_torch import EngineCore
+    ref = EngineCore(plan, batch=x4.shape[0], block=block,
+                     dtype=torch.float64, device="cpu")
+    return np.concatenate([ref.process(x4.astype(np.float64)), ref.flush()],
+                          axis=1)
+
+
+def warm_steps(label: str, eng, x, card: str, steps: int = 40) -> dict:
+    """Warm ``process_device`` steps of one block: host enqueue, wall and
+    device span per step, and each kernel's device time from
+    ``torch.profiler`` (the trace taken again, up to three times, when it
+    holds none of the card's kernels)."""
+    import torch
+    blk = eng.block
+
+    def run():
+        for i in range(steps):
+            eng.process_device(x[:, i * blk:(i + 1) * blk])
+
+    eng.reset()
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    run()
+    t1 = time.perf_counter()
+    end.record()
+    end.synchronize()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    device = start.elapsed_time(end) / steps
+    for traces in range(1, 4):
+        kernels = device_kernels(run, 1)
+        busy = sum(ms for _, ms, _ in kernels) / steps
+        if busy > 0:
+            break
+    require(busy > 0, f"{label}: no kernel in {traces} torch.profiler traces")
+    k1 = sum(ms for name, ms, _ in kernels
+             if "fused_resample_kernel" in name) / steps
+    print(f"  {label}: {steps} warm steps of {x.shape[0]} streams x {blk}: "
+          f"host enqueue {(t1 - t0) / steps * 1e3:.5f} ms/step, wall "
+          f"{wall:.5f} ms/step, device span {device:.5f} ms/step; kernels "
+          f"busy {busy:.5f} ms/step (K1 {k1:.5f}) under the profiler, trace "
+          f"{traces} (device idle share {max(0.0, 1 - busy / wall):.3f}) on "
+          f"{card}")
+    for name, ms, count in kernels:
+        print(f"  {label}: {ms / steps:.5f} ms/step, {count / steps:g} per "
+              f"step: {name[:90]}")
+    eng.reset()
+    return {"enqueue_ms": (t1 - t0) / steps * 1e3, "busy_ms": busy,
+            "idle": max(0.0, 1 - busy / wall)}
+
+
+def composite_path(gen, card: str) -> dict:
+    """Path A: 96 kHz -> 44.1 kHz HIGH, the banded composite with a 294-row
+    head, 256 streams x 10 s through ``EngineCore.process_device`` in
+    blocks, then ``flush_device``, and through ``process()`` in random
+    chunks; returns K1's launches and its record at the composite's
+    shape."""
+    import torch
+    from go_audio_resampler_tpu_torch import EngineCore, TimeMajorEngine
+    from go_audio_resampler_tpu_torch.utils import metrics, signals
+
+    t0 = time.perf_counter()
+    plan = composite_plan(((24000, False), (44100, True)))
+    design_s = time.perf_counter() - t0
+    op = plan.op
+    require((op.P, op.I, op.W, op.lam, op.head.shape)
+            == (147, 320, 2581, 490, (294, 2901)),
+            f"composite 96k->44.1k: P {op.P}, I {op.I}, W {op.W}, lam "
+            f"{op.lam}, head {op.head.shape}")
+    eng = EngineCore(plan, batch=COMP_STREAMS, block=2048)
+    r_t, ipx, wx, p2, carry, _ = eng._band
+    require((tuple(r_t.shape), ipx, eng.block, carry, eng._drop_override)
+            == ((3861, 735), 1600, 3200, 3690, 1470),
+            f"composite engine: R_t {tuple(r_t.shape)}, ipx {ipx}, block "
+            f"{eng.block}, carry {carry}")
+    try:
+        TimeMajorEngine(plan, batch=COMP_STREAMS, block=2048)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    require(refused, "TimeMajorEngine took a composite with a head")
+    # K1 at this shape first, then the engine that runs it.
+    record = k1_engine_shape("composite 96k->44.1k", eng, gen, COMP_STREAMS)
+
+    n = COMP_IN * SECONDS
+    canonical = plan.lengths.canonical(n)
+    x = 0.5 * torch.randn((COMP_STREAMS, n), generator=gen, device="cuda")
+    x[0] = torch.as_tensor(signals.sine(n, 1000.0, COMP_IN),
+                           dtype=torch.float32, device="cuda")
+    x[1] = torch.as_tensor(signals.sine(n, 30000.0, COMP_IN),
+                           dtype=torch.float32, device="cuda")
+    steps = warm_steps("composite step", eng, x, card)
+    chunks = [(a, min(n, a + eng.block)) for a in range(0, n, eng.block)]
+    expected = expected_launches(plan, n, len(chunks), ipx, p2, eng.block,
+                                 eng._drop_override)
+    y, wall, counts = device_run(eng, x, chunks, canonical)
+    require(tuple(y.shape) == (COMP_STREAMS, canonical),
+            f"composite output {tuple(y.shape)}, canonical {canonical}")
+    require(counts == (expected, 0, 0),
+            f"composite launches {counts}, expected ({expected}, 0, 0)")
+    require(bool(torch.isfinite(y).all()), "composite: non-finite output")
+    x_np = x.cpu().numpy()
+    y_np = y.cpu().numpy()
+    del y
+    host = EngineCore(plan, batch=COMP_STREAMS, block=2048)
+    reset_launches()
+    y_host, wall_h, n_chunks = host_run(host, x_np, np.random.default_rng(11),
+                                        host.block)
+    host_launches = launch_counts()
+    same = bool(np.array_equal(y_np, y_host))
+    del y_host
+    want = float64_run(plan, x_np[:4], 2048)
+    got = y_np[:4].astype(np.float64)
+    y_max = float(np.abs(want).max())
+    err = float(np.abs(got - want).max()) / y_max
+    xe = np.zeros((4, op.head.shape[1]))
+    xe[:, op.lam:] = x_np[:4, :op.head.shape[1] - op.lam]
+    head_want = xe @ op.head.T
+    head_err = float(np.abs(got[:, :op.n_head] - head_want).max()) / y_max
+    thd = metrics.thd(got[0], COMP_OUT, 1000.0, 16384)
+    mid = got[1][got.shape[1] // 4:-(got.shape[1] // 4)]
+    alias = -20.0 * np.log10(max(np.sqrt(np.mean(mid ** 2)) * np.sqrt(2.0),
+                                 1e-12))
+    print(f"  composite 96k->44.1k HIGH: host design {design_s:.3f} s; "
+          f"{COMP_STREAMS} streams x {n} samples through process_device in "
+          f"{wall:.4f} s = {COMP_STREAMS * n / wall / 1e6:.1f} Msamples/s "
+          f"in, {counts[0]} K1 launches, {len(chunks)} chunks "
+          f"({wall / len(chunks) * 1e3:.4f} ms each); process() in "
+          f"{n_chunks} random chunks {COMP_STREAMS * n / wall_h / 1e6:.1f} "
+          f"Msamples/s in (launches (K1, K2, K3) {host_launches}) on {card}")
+    print(f"  composite: length {y_np.shape[1]} == canonical {canonical}; "
+          f"process_device equal to process() bit for bit: {same}; max |cuda "
+          f"f32 - cpu f64| over 4 streams = {err:.3g} of max|y|, over the "
+          f"first {op.n_head} outputs against the float64 head rows "
+          f"{head_err:.3g}; THD of the 1 kHz stream = {thd:.2f} dB (floor "
+          f"{THD_COMP_DB}); the 30 kHz tone rejected by {alias:.1f} dB "
+          f"(floor {ALIAS_DB})")
+    require(host_launches[0] > 0 and host_launches[1:] == (0, 0),
+            f"composite process() launches {host_launches}")
+    require(same, "composite: process_device and process() differ")
+    require(err <= ENGINE_TOL and head_err <= ENGINE_TOL,
+            f"composite vs float64: {err}, head {head_err}")
+    require(thd <= THD_COMP_DB, f"composite THD {thd} dB > {THD_COMP_DB}")
+    require(alias >= ALIAS_DB, f"composite alias rejection {alias} dB")
+    return {"launches": counts[0], "k1": {**record, "launches": counts[0]},
+            "steps": steps}
+
+
+def strict_path(gen, card: str) -> dict:
+    """Path B: 48 kHz -> 44.1 kHz HIGH with the strict-antialias prefilter
+    composed into the exact operator, 1024 streams x 10 s through
+    ``EngineCore.process_device`` and ``process()``; returns K1's
+    launches and its record at the operator's shape."""
+    import torch
+    from go_audio_resampler_tpu_torch import EngineCore, Quality, plan_engine
+    from go_audio_resampler_tpu_torch.utils import metrics, signals
+
+    plan = plan_engine(DECIM_IN, RATE_IN, Quality.HIGH, strict_antialias=True)
+    eng = EngineCore(plan, batch=STRICT_STREAMS, block=2048)
+    r_t, ipx, wx, p2, carry, _ = eng._band
+    require(plan.aa_taps == 491 and (tuple(r_t.shape), ipx, eng.block, carry)
+            == ((1161, 441), 480, 2400, 725),
+            f"strict engine: aa {plan.aa_taps}, R_t {tuple(r_t.shape)}, ipx "
+            f"{ipx}, block {eng.block}, carry {carry}")
+    record = k1_engine_shape("strict 48k->44.1k", eng, gen, STRICT_STREAMS)
+    n = DECIM_IN * SECONDS
+    canonical = plan.lengths.canonical(n)
+    x = 0.5 * torch.randn((STRICT_STREAMS, n), generator=gen, device="cuda")
+    x[0] = torch.as_tensor(signals.sine(n, 1000.0, DECIM_IN),
+                           dtype=torch.float32, device="cuda")
+    chunks = [(a, min(n, a + eng.block)) for a in range(0, n, eng.block)]
+    expected = expected_launches(plan, n, len(chunks), ipx, p2, eng.block,
+                                 eng._drop_override)
+    y, wall, counts = device_run(eng, x, chunks, canonical)
+    require(tuple(y.shape) == (STRICT_STREAMS, canonical)
+            and counts == (expected, 0, 0) and bool(torch.isfinite(y).all()),
+            f"strict: output {tuple(y.shape)}, canonical {canonical}, "
+            f"launches {counts} (expected {expected})")
+    x_np = x.cpu().numpy()
+    del x
+    y_np = y.cpu().numpy()
+    del y
+    host = EngineCore(plan, batch=STRICT_STREAMS, block=2048)
+    y_host, wall_h, n_chunks = host_run(host, x_np, np.random.default_rng(12),
+                                        host.block)
+    same = bool(np.array_equal(y_np, y_host))
+    del y_host
+    want = float64_run(plan, x_np[:4], 2048)
+    got = y_np[:4].astype(np.float64)
+    err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    thd = metrics.thd(got[0], RATE_IN, 1000.0, 16384)
+    print(f"  strict 48k->44.1k HIGH: {STRICT_STREAMS} streams x {n} samples "
+          f"through process_device in {wall:.4f} s = "
+          f"{STRICT_STREAMS * n / wall / 1e6:.1f} Msamples/s in, {counts[0]} "
+          f"K1 launches, {len(chunks)} chunks; process() in {n_chunks} random"
+          f" chunks {STRICT_STREAMS * n / wall_h / 1e6:.1f} Msamples/s in on "
+          f"{card}")
+    print(f"  strict: length {y_np.shape[1]} == canonical {canonical}; "
+          f"process_device equal to process() bit for bit: {same}; max |cuda "
+          f"f32 - cpu f64| over 4 streams = {err:.3g} of max|y|; THD of the "
+          f"1 kHz stream = {thd:.2f} dB (floor {THD_FLOOR_DB})")
+    require(same, "strict: process_device and process() differ")
+    require(err <= ENGINE_TOL, f"strict vs float64: {err}")
+    require(thd <= THD_FLOOR_DB, f"strict THD {thd} dB > {THD_FLOOR_DB}")
+    return {"launches": counts[0], "k1": {**record, "launches": counts[0]}}
+
+
+def head_free_path(gen, card: str) -> dict:
+    """Path C: 192 kHz -> 48 kHz HIGH, the head-free composite of two 2x
+    decimators, 256 streams x 10.003 s through ``TimeMajorEngine`` (K2)
+    and ``EngineCore`` (K1); returns K2's launches and its record at the
+    composite's shape."""
+    import torch
+    import torch.nn.functional as F
+    from go_audio_resampler_tpu_torch import EngineCore, TimeMajorEngine
+    from go_audio_resampler_tpu_torch.ops import banded, fused, tmajor
+
+    plan = composite_plan(((24000, False), (24000, False)))
+    op = plan.op
+    eng = EngineCore(plan, batch=C_STREAMS, block=2048)
+    tm = TimeMajorEngine(plan, batch=C_STREAMS, block=2048)
+    r_t, ipx, wx, p2, carry, kop = eng._band
+    require((op.P, op.I, op.W, op.head) == (1, 4, 2701, None)
+            and (tuple(r_t.shape), ipx, tm.block, tm.chunk_multiple, carry)
+            == ((4497, 450), 1800, 3600, 1800, 3600),
+            f"head-free composite: P {op.P}, I {op.I}, W {op.W}, R_t "
+            f"{tuple(r_t.shape)}, ipx {ipx}, block {tm.block}")
+    # K2 at the step's shape against its plain version and K1, then timed.
+    nf = tm.block // ipx
+    r = tm._r
+    errs = []
+    for s, frames, rows in ((C_STREAMS, nf, carry + tm.block),
+                            (7, 3, 2 * ipx + wx + 5)):
+        xt = torch.randn((rows, s), generator=gen, device="cuda")
+        kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=frames, tier="highest")
+        yk = tmajor.fused_resample_tmajor(xt, r, op=tm._op, **kw)
+        ref = tmajor.fused_resample_tmajor_reference(xt, r, **kw)
+        k1 = fused.fused_resample(xt.t().contiguous(), r_t, op=kop, **kw)
+        torch.cuda.synchronize()
+        err = (yk - ref).abs().max().item() / ref.abs().max().item()
+        same = bool(torch.equal(yk, k1.t()))
+        print(f"  K2 head-free composite: xT {tuple(xt.shape)}, R {(p2, wx)}, "
+              f"{frames} frames, ipx {ipx}, split {tm._op.split}: max "
+              f"|kernel - plain| = {err:.3g} of max|y|; equal to K1 bit for "
+              f"bit: {same}")
+        require(err <= KERNEL_TOL and same, f"K2 head-free composite: {err}, "
+                f"equal to K1 {same}")
+        errs.append(err)
+    xt = torch.randn((carry + tm.block, C_STREAMS), generator=gen,
+                     device="cuda")
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=nf, tier="highest")
+    weight = r[:, None, :]
+    lib_in = xt.t().contiguous()[:, None, :]
+    frames_t = xt[:(nf - 1) * ipx + wx].unfold(0, wx, ipx).transpose(1, 2)
+    timed = time_banded(
+        "K2 head-free composite shape",
+        lambda: tmajor.fused_resample_tmajor(xt, r, op=tm._op, **kw),
+        lambda: tmajor.fused_resample_tmajor_reference(xt, r, **kw),
+        {"library_conv1d_ms": lambda: F.conv1d(lib_in, weight, stride=ipx),
+         "library_matmul_ms": lambda: torch.matmul(r, frames_t)},
+        banded_cost(r_t, kop, C_STREAMS * nf,
+                    C_STREAMS * ((nf - 1) * ipx + wx)))
+    del xt, lib_in, frames_t
+
+    n = C_SAMPLES
+    canonical = plan.lengths.canonical(n)
+    x = 0.5 * torch.randn((C_STREAMS, n), generator=gen, device="cuda")
+    chunks = [(a, min(n, a + tm.block)) for a in range(0, n, tm.block)]
+    expected = expected_launches(plan, n, len(chunks), ipx, p2, tm.block,
+                                 tm._drop)
+    y, wall, counts = device_run(eng, x, chunks, canonical)
+    xt = x.t().contiguous()
+    torch.empty((canonical + tm.block, C_STREAMS), device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = [tm.process_device(xt[a:b]) for a, b in chunks]
+    outs.append(tm.flush_device())
+    torch.cuda.synchronize()
+    wall_t = time.perf_counter() - t0
+    counts_t = launch_counts()
+    yt = torch.cat(outs, dim=0)
+    del outs, xt
+    require(tuple(y.shape) == (C_STREAMS, canonical)
+            and tuple(yt.shape) == (canonical, C_STREAMS),
+            f"head-free outputs {tuple(y.shape)}, {tuple(yt.shape)}, "
+            f"canonical {canonical}")
+    require(counts == (expected, 0, 0) and counts_t == (0, expected, 0),
+            f"head-free launches {counts} and {counts_t}, expected "
+            f"{expected}")
+    require(bool(torch.isfinite(yt).all()), "head-free: non-finite output")
+    y_max = y.abs().max().item()
+    vs_stream = (yt.t() - y).abs().max().item() / y_max
+    same = bool(torch.equal(yt.t(), y))
+    want = float64_run(plan, x[:4].cpu().numpy(), 2048)
+    err = float(np.abs(yt[:, :4].t().cpu().double().numpy() - want).max()
+                ) / float(np.abs(want).max())
+    print(f"  head-free composite 192k->48k HIGH: {C_STREAMS} streams x {n} "
+          f"samples: TimeMajorEngine {C_STREAMS * n / wall_t / 1e6:.1f} "
+          f"Msamples/s in ({counts_t[1]} K2 launches), EngineCore "
+          f"{C_STREAMS * n / wall / 1e6:.1f} Msamples/s in ({counts[0]} K1 "
+          f"launches), {len(chunks)} chunks on {card}")
+    print(f"  head-free composite: length {canonical} == canonical; max "
+          f"|time-major - stream-major| = {vs_stream:.3g} of max|y| (bit for "
+          f"bit: {same}); max |cuda f32 - cpu f64| over 4 streams = "
+          f"{err:.3g} of max|y|")
+    require(vs_stream <= ENGINE_TOL and err <= ENGINE_TOL,
+            f"head-free composite: {vs_stream}, {err}")
+    return {"launches": counts_t[1], "k1_launches": counts[0],
+            "k2": {**timed, "max_abs_err": max(errs),
+                   "launches": counts_t[1]}}
+
+
+def strict_oneshot(card: str, cases) -> list:
+    """Path E: ``oneshot`` of each (name, plan, x, K1 and K3 launches)
+    case: lengths, exact launches, 4 streams against the float64 CPU
+    ``oneshot`` within 2e-5 of max|y|; returns the outputs and the
+    (K1, K2, K3) launches of all the calls."""
+    import torch
+    from go_audio_resampler_tpu_torch import oneshot
+
+    ys, total = [], np.zeros(3, dtype=int)
+    for name, plan, x, (want_k1, want_k3) in cases:
+        n = x.shape[1]
+        reset_launches()
+        t0 = time.perf_counter()
+        y = oneshot(plan, x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        want = oneshot(plan, x[:4].cpu().double().numpy(),
+                       device="cpu").numpy()
+        err = float(np.abs(y[:4].cpu().double().numpy() - want).max()
+                    ) / float(np.abs(want).max())
+        print(f"  one-shot {name}: [{x.shape[0]}, {n}] -> {tuple(y.shape)} =="
+              f" canonical; launches (K1, K2, K3) {counts}; max |cuda f32 - "
+              f"cpu f64| over 4 streams = {err:.3g} of max|y|; entry point "
+              f"(host design included) {wall:.4f} s on {card}")
+        require(tuple(y.shape) == (x.shape[0], plan.lengths.canonical(n))
+                and bool(torch.isfinite(y).all()),
+                f"one-shot {name}: {tuple(y.shape)}")
+        require(counts == (want_k1, 0, want_k3),
+                f"one-shot {name}: launches {counts}")
+        require(err <= ENGINE_TOL, f"one-shot {name}: {err}")
+        ys.append(y)
+        total += counts
+    return ys, tuple(int(c) for c in total)
+
+
+def strict_walk_path(gen, card: str) -> dict:
+    """Path D: 48 kHz -> 44.099 kHz HIGH, the non-exact walk behind the
+    strict-antialias prefilter, 256 streams x 2 s through ``process()`` in
+    random chunks, then ``flush()``; path E, the one-shot of paths B and D
+    on 64 of its streams; returns the K1 launches of each and K1's record
+    at the prefilter's shape."""
+    import torch
+    import torch.nn.functional as F
+    from go_audio_resampler_tpu_torch import EngineCore, Quality, plan_engine
+    from go_audio_resampler_tpu_torch.ops import convolve, fused
+
+    plan = plan_engine(DECIM_IN, D_OUT, Quality.HIGH, strict_antialias=True)
+    eng = EngineCore(plan, batch=D_STREAMS, block=2048)
+    band = eng._aa_band
+    t = plan.aa_taps
+    require(plan.kind == "two_stage" and not plan.is_rational_exact
+            and t == 491 and eng.block == 2048 and band.p == 128
+            and tuple(band.r_t.shape) == (t - 1 + 128, 128),
+            f"strict walk: aa {t}, block {eng.block}, band {band.p}, "
+            f"{tuple(band.r_t.shape)}")
+    # K1 at the prefilter's shape against its plain version, then timed.
+    h = eng._aa_coeffs[None, :]
+    xk = torch.randn((D_STREAMS, t - 1 + eng.block), generator=gen,
+                     device="cuda")
+    wx, p2 = band.r_t.shape
+    nf = eng.block // band.p
+    kw = dict(ipx=band.p, wx=wx, p2=p2, n_frames=nf, tier="highest")
+    reset_launches()
+    yk = convolve._conv_banded(xk, h, 1, band=band, tier="highest")[:, 0]
+    launched = launch_counts()
+    ref = fused.fused_resample_reference(xk, band.r_t, **kw)[:, :eng.block]
+    lib_in, weight = xk[:, None, :], h[:, None, :].contiguous()
+    lib = F.conv1d(lib_in, weight)[:, 0]
+    torch.cuda.synchronize()
+    err_k = (yk - ref).abs().max().item() / ref.abs().max().item()
+    lib_err = (yk - lib).abs().max().item() / ref.abs().max().item()
+    print(f"  K1 prefilter: data {tuple(xk.shape)}, R_t {(wx, p2)}, {nf} "
+          f"frames, ipx {band.p}, split {band.op.split}: max |kernel - "
+          f"plain| = {err_k:.3g} of max|y|, max |kernel - F.conv1d| = "
+          f"{lib_err:.3g}")
+    require(launched == (1, 0, 0) and err_k <= KERNEL_TOL
+            and lib_err <= KERNEL_TOL,
+            f"K1 prefilter: launches {launched}, {err_k}, {lib_err}")
+    timed = time_banded(
+        "K1 prefilter shape",
+        lambda: convolve._conv_banded(xk, h, 1, band=band, tier="highest"),
+        lambda: fused.fused_resample_reference(xk, band.r_t, **kw),
+        {"library_conv1d_ms": lambda: F.conv1d(lib_in, weight)},
+        banded_cost(band.r_t, band.op, D_STREAMS * nf,
+                    D_STREAMS * xk.shape[1]))
+    del xk, lib_in, lib
+
+    n = SMALL_SECONDS * DECIM_IN
+    x = 0.5 * torch.randn((D_STREAMS, n), generator=gen, device="cuda")
+    x_np = x.cpu().numpy()
+    lm = plan.lengths
+    z, d, blk = lm.flush_pad(n), eng._aa_delay, eng.block
+    expected = (n // blk + -(-(n % blk + z + d) // blk)
+                + walk_launches(plan, n, blk))
+    reset_launches()
+    y, wall, n_chunks = host_run(eng, x_np, np.random.default_rng(13), blk)
+    counts = launch_counts()
+    canonical = lm.canonical(n)
+    require(y.shape == (D_STREAMS, canonical) and np.isfinite(y).all(),
+            f"strict walk: output {y.shape}, canonical {canonical}")
+    require(counts == (expected, 0, 0),
+            f"strict walk launches {counts}, expected ({expected}, 0, 0)")
+    want = float64_run(plan, x_np[:4], 2048)
+    err = float(np.abs(y[:4] - want).max()) / float(np.abs(want).max())
+
+    # Path E: the one-shot of B and D; D's on the walk's first 64 streams.
+    b_plan = plan_engine(DECIM_IN, RATE_IN, Quality.HIGH,
+                         strict_antialias=True)
+    xb = 0.5 * torch.randn((ONESHOT_STREAMS, ONESHOT_SECONDS * DECIM_IN),
+                           generator=gen, device="cuda")
+    (yb, yd), oneshot_counts = strict_oneshot(card, [
+        ("48k->44.1k HIGH strict (K1, lam)", b_plan, xb, (1, 0)),
+        ("48k->44.099k HIGH strict (prefilter on K1, then K3)", plan,
+         x[:ONESHOT_STREAMS], (1, 1))])
+    yd = yd.cpu().numpy()
+    vs_oneshot = float(np.abs(y[:ONESHOT_STREAMS] - yd).max()
+                       ) / float(np.abs(yd).max())
+    print(f"  strict walk 48k->44.099k HIGH: {D_STREAMS} streams x {n} "
+          f"samples through process() in {n_chunks} random chunks in "
+          f"{wall:.4f} s = {D_STREAMS * n / wall / 1e6:.1f} Msamples/s in, "
+          f"launches (K1, K2, K3) {counts} (prefilter and prestage, "
+          f"{expected - walk_launches(plan, n, blk)} + "
+          f"{walk_launches(plan, n, blk)}) on {card}")
+    print(f"  strict walk: length {y.shape[1]} == canonical {canonical}; max "
+          f"|cuda f32 - cpu f64| over 4 streams = {err:.3g} of max|y|; max "
+          f"|walk - one-shot| over {ONESHOT_STREAMS} streams = "
+          f"{vs_oneshot:.3g} of max|y|")
+    require(err <= ENGINE_TOL, f"strict walk vs float64: {err}")
+    require(yd.shape == y[:ONESHOT_STREAMS].shape
+            and vs_oneshot <= WALK_VS_ONESHOT,
+            f"strict walk vs one-shot: {yd.shape}, {vs_oneshot}")
+    return {"launches": counts[0],
+            "k1": {**timed, "max_abs_err": err_k,
+                   "launches": expected - walk_launches(plan, n, blk)},
+            "oneshot_k1": oneshot_counts[0], "oneshot_k3": oneshot_counts[2]}
+
+
 # -- precision tiers -------------------------------------------------------
 
 
@@ -1947,6 +2526,26 @@ def main() -> int:
     dft_k1 = dft_cubic_phase(gen, card)
     print(f"  launches by path: K1 {walk['launches']} (general walk), "
           f"{dft_k1} (dft_up stream); cubic none")
+    torch.cuda.empty_cache()
+    print("strict antialias and banded composites:")
+    comp = composite_path(gen, card)
+    torch.cuda.empty_cache()
+    strict = strict_path(gen, card)
+    torch.cuda.empty_cache()
+    head_free = head_free_path(gen, card)
+    torch.cuda.empty_cache()
+    strict_walk = strict_walk_path(gen, card)
+    k1["shapes"]["composite_96k_44k"] = comp["k1"]
+    k1["shapes"]["strict_48k_44k"] = strict["k1"]
+    k1["shapes"]["aa_prefilter"] = strict_walk["k1"]
+    k2["shapes"]["composite_192k_48k"] = head_free["k2"]
+    print(f"  launches by path: K1 {comp['launches']} (composite "
+          f"96k->44.1k), {strict['launches']} (strict 48k->44.1k), "
+          f"{head_free['k1_launches']} (head-free composite, EngineCore), "
+          f"{strict_walk['launches']} (strict walk: prefilter and "
+          f"prestage), {strict_walk['oneshot_k1']} (one-shot B and D); K2 "
+          f"{head_free['launches']} (head-free composite); K3 "
+          f"{strict_walk['oneshot_k3']} (one-shot D)")
     print("chunking:")
     chunking_phase(args.seed)
     if args.profile:

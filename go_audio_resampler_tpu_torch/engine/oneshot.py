@@ -20,9 +20,15 @@ Each call runs at the process-wide matmul tier (``GAR_TPU_MATMUL_PRECISION``,
 read once per call; ``ops/precision.py``), as the JAX package's one-shot
 path does, and each kernel call goes through the dispatch gate
 (``precision.dispatch_allowed``: its plain version inside ``force_xla``).
-On CPU tensors each kernel's wrapper computes its plain version.  Plans
-with the strict-antialias prefilter (``aa_taps > 0``) and the FFT-routed
-decimation are not ported yet and raise ``NotImplementedError``.
+On CPU tensors each kernel's wrapper computes its plain version.
+
+The strict-antialias prefilter (``aa_taps > 0``) of an exact-rational
+plan is composed into its banded operator (``pipeline/fused.compose``),
+whose left context ``lam`` the apply pads; a non-exact plan runs it
+first, as a 1:1 FIR through the banded convolution (K1), then the K3
+path.  Prefilters of ``FFT_CONV_MIN_TAPS`` taps or more, which the JAX
+package routes through FFT overlap-save, and the FFT-routed decimation
+are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,15 +48,20 @@ from .stages import prestage_apply
 
 _FRAC = 1 << PHASE_FRAC_BITS
 
+#: 1:1-FIR prototype length at and above which the JAX package filters the
+#: strict-antialias prefilter of a non-exact plan by FFT overlap-save
+#: (``engine/fftstage.py``), not the banded convolution.
+FFT_CONV_MIN_TAPS = 6144
+
 #: Crossover for routing the decimate topology through FFT overlap-save
 #: (taps >= this).  It lies above the 8191-tap design cap, so the banded
 #: matmul takes every plan.  A constant: the FFT route is not ported, so a
 #: lower crossover could only turn a working plan into an error.
 DECIM_FFT_MIN_TAPS = 16384
 
-_STRICT_AA = ("strict-antialias plans (aa_taps > 0) need pipeline/fused."
-              "compose, not ported yet (ROADMAP.md, queue 1 item 3, "
-              "pipeline/fused.py)")
+_FFT_AA = ("strict-antialias prefilters of FFT_CONV_MIN_TAPS taps or more "
+           "need the FFT overlap-save of engine/fftstage, not ported yet "
+           "(ROADMAP.md, queue 1 item 4, engine/fftstage.py)")
 _FFT_DECIM = ("FFT-routed decimation (decim_taps >= DECIM_FFT_MIN_TAPS) "
               "needs engine/fftstage, not ported yet (ROADMAP.md, queue 1 "
               "item 4, engine/fftstage.py)")
@@ -272,15 +283,14 @@ def _fused_rational_matrix(plan: EnginePlan):
       => x-coefficient index rel. frame start = (div+t)//F + tau - (T1-1)
          - m*Ipx, which is >= 0 with min 0 (delta//F == T1-1).
 
+    The strict-antialias prefilter (``aa_taps > 0``), a delay-compensated
+    1:1 FIR, is composed in ahead of both stages
+    (``pipeline/fused.compose``); its half-length becomes the operator's
+    left zero-context ``lam``.
+
     Returns (R [P2, Wx], P2 outputs/period, Ipx input samples/period,
     lam left zero-context).  Computed once per plan in float64 and cached.
-
-    Plans with the strict-antialias prefilter (``aa_taps > 0``) need the
-    operator composition of ``pipeline/fused.compose``, which is not
-    ported yet: they raise NotImplementedError.
     """
-    if plan.aa_taps:
-        raise NotImplementedError(_STRICT_AA)
     key = plan.fingerprint
     if key in _FUSED_CACHE:
         return _FUSED_CACHE[key]
@@ -319,7 +329,18 @@ def _fused_rational_matrix(plan: EnginePlan):
             R[r, j0:j0 + T1] += a * pre[p]
             max_j = max(max_j, j0 + T1 - 1)
     R = R[:, :max_j + 1]
-    _FUSED_CACHE[key] = (R, P2, Ipx, 0)
+    lam = 0
+    if plan.aa_taps:
+        from ..pipeline.fused import BandedOp, compose
+        d = (plan.aa_taps - 1) // 2
+        aa = BandedOp(P=1, I=1, W=plan.aa_taps,
+                      R=np.asarray(plan.aa_coeffs,
+                                   dtype=np.float64)[None, :],
+                      lam=d, lengths=())
+        core = BandedOp(P=P2, I=Ipx, W=R.shape[1], R=R, lam=0, lengths=())
+        comp = compose(aa, core)
+        R, P2, Ipx, lam = comp.R, comp.P, comp.I, comp.lam
+    _FUSED_CACHE[key] = (R, P2, Ipx, lam)
     return _FUSED_CACHE[key]
 
 
@@ -347,12 +368,12 @@ def _matrix_t(r: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def _banded_aux(r: np.ndarray, ipx: int, dtype: torch.dtype, device,
-                tier: str):
-    """(R_t, Ipx, op) of a periodic banded operator: R_t on the device
-    and, on the card, R_t as K1 reads it at ``tier`` (``banded.prepare``;
-    None on the CPU)."""
+                tier: str, lam: int = 0):
+    """(R_t, Ipx, op, lam) of a periodic banded operator with left
+    zero-context ``lam``: R_t on the device and, on the card, R_t as K1
+    reads it at ``tier`` (``banded.prepare``; None on the CPU)."""
     r_t = _matrix_t(r, dtype, device)
-    return r_t, ipx, banded.prepare_on_card(r_t, tier)
+    return r_t, ipx, banded.prepare_on_card(r_t, tier), lam
 
 
 def _banded_tiles_apply(u: torch.Tensor, aux, last_start: int, count: int,
@@ -365,7 +386,7 @@ def _banded_tiles_apply(u: torch.Tensor, aux, last_start: int, count: int,
     inside ``force_xla``) its plain version gathers the windows.  Both at
     ``tier``.
     """
-    starts_d, m_d, bands, warpgroups = aux
+    starts_d, m_d, bands, warpgroups = aux[:4]
     w_band, tile = int(m_d.shape[1]), int(m_d.shape[2])
     u = _pad_right(u, last_start + w_band)
     kw = dict(w_band=w_band, tile=tile, tier=tier)
@@ -401,13 +422,16 @@ def _banded_apply(x: torch.Tensor, count: int, aux,
     package's ``_poly_apply_rational_fused`` and ``_decim_apply_matmul``.
 
     Frames of ``x`` of width Wx advance Ipx per P outputs; ``aux`` is
-    (R_t [Wx, P], Ipx, op) from :func:`_banded_aux`, at ``tier``.  ``x``
-    is zero-extended on the right to cover the last frame; no
+    (R_t [Wx, P], Ipx, op, lam) from :func:`_banded_aux`, at ``tier``.
+    ``x`` gets ``lam`` zeros on the left (the strict-antialias prefilter's
+    context) and is zero-extended on the right to cover the last frame; no
     intermediate stream or frames are materialized.
     """
-    r_t, ipx, op = aux
+    r_t, ipx, op, lam = aux
     wx, p2 = r_t.shape
     n_frames = -(-count // p2)
+    if lam:
+        x = _pad(x, lam, 0)
     x = _pad_right(x, (n_frames - 1) * ipx + wx)
     kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=n_frames, tier=tier)
     if dispatch_allowed(tier):
@@ -449,9 +473,14 @@ def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device,
     - general and cubic: (starts, M, bands, warpgroups), the banded tile
       matrices (tens of MB per (plan, length)), their band table and the
       K3 block width for them;
-    - rational: (R_t, Ipx, op), the superframed per-period operator;
-    - decimate: (R_t, Ipx, op), the per-period matrix at the kernel's
+    - rational: (R_t, Ipx, op, lam), the superframed per-period operator
+      (the strict-antialias prefilter composed in, ``lam`` its context);
+    - decimate: (R_t, Ipx, op, 0), the per-period matrix at the kernel's
       period on the card and the plain version's on the CPU;
+    - general with the strict-antialias prefilter: the general tuple
+      followed by (h [1, taps], band), the prefilter's taps and, on the
+      card, the banded convolution's operator for the padded input
+      (``convolve.band_operator``; None on the CPU);
     - dft_up: (coeffs, band), the prestage's polyphase rows and, on the
       card, the banded lowering's operator for the padded input
       (``convolve.band_operator``; None on the CPU); none at factor 1;
@@ -485,12 +514,21 @@ def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device,
         return _banded_aux(r, ipx, dtype, device, tier)
     # two_stage
     if plan.is_rational_exact:
-        r, _, ipx, _lam = _fused_rational_matrix(plan)
+        r, _, ipx, lam = _fused_rational_matrix(plan)
         r, ipx = superframe(r, ipx)
-        return _banded_aux(r, ipx, dtype, device, tier)
-    if plan.aa_taps:
-        raise NotImplementedError(_STRICT_AA)
-    return _upload(_general_matrices(plan, canonical), dtype, device)
+        return _banded_aux(r, ipx, dtype, device, tier, lam)
+    if plan.aa_taps >= FFT_CONV_MIN_TAPS:
+        raise NotImplementedError(_FFT_AA)
+    aux = _upload(_general_matrices(plan, canonical), dtype, device)
+    if not plan.aa_taps:
+        return aux
+    h = torch.as_tensor(plan.aa_coeffs, dtype=dtype, device=device)[None, :]
+    if device.type != 'cuda':
+        return aux + (h, None)
+    # The prefilter reads xext = (0^d x 0^(d+z)), as _oneshot_apply pads.
+    n_ext = n + 2 * ((plan.aa_taps - 1) // 2) + plan.lengths.flush_pad(n)
+    return aux + (h, convolve.band_operator(h, n_ext, 1, dtype, device,
+                                            tier))
 
 
 def _oneshot_apply(plan: EnginePlan, x: torch.Tensor, aux,
@@ -530,6 +568,15 @@ def _oneshot_apply(plan: EnginePlan, x: torch.Tensor, aux,
     # two_stage
     if plan.is_rational_exact:
         return _banded_apply(x, canonical, aux, tier)
+    if plan.aa_taps:
+        # The strict-antialias prefilter: a delay-compensated 'same'
+        # lowpass at the input rate, extended over the flush padding:
+        # filter (x ++ 0^z), then continue with no further right padding.
+        d = (plan.aa_taps - 1) // 2
+        h, band = aux[4:]
+        x = convolve.conv1d_poly(_pad(x, d, d + z), h, stride=1,
+                                 precision=tier, band=band)[:, 0, :]
+        z = 0
     # The prestage is composed into the banded tile matrices (x domain);
     # the device never materializes the 2x intermediate stream.
     xext = _pad(x, plan.pre_taps - 1, z)

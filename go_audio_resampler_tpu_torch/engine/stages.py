@@ -185,15 +185,17 @@ def prestage_process(coeffs: torch.Tensor, state: PrestageState,
 # ---------------------------------------------------------------------------
 
 def fir_process(coeffs: torch.Tensor, carry: torch.Tensor, x: torch.Tensor,
-                precision: str = 'auto'):
+                precision: str = 'auto', band: ConvBand | None = None):
     """Causal streaming FIR: [S, B] in -> [S, B] out, carry T-1 samples.
 
     Output i is c_i = sum_t coeffs[t] * (carry ++ x)[i + t]; returns
-    (carry', y).
+    (carry', y).  On the card the K1 kernel through the banded
+    convolution, reading ``band``: the operator for T-1+B samples, which
+    an engine builds once (``convolve.band_operator``).
     """
     xext = torch.cat([carry.to(x.dtype), x], dim=1)
     y = conv1d_poly(xext, coeffs[None, :].to(x.dtype), stride=1,
-                    precision=precision)[:, 0, :]
+                    precision=precision, band=band)[:, 0, :]
     return xext[:, x.shape[1]:].contiguous(), y
 
 

@@ -3,11 +3,15 @@
 PyTorch counterpart of the JAX package's ``engine/streaming.py``.  The
 topologies, each with its step:
 
-- exact-rational two-stage plans (e.g. 44.1k <-> 48k) and integer
-  decimation (e.g. 48k -> 16k, the ML-ingest path): one periodic banded
+- exact-rational two-stage plans (e.g. 44.1k <-> 48k; with the
+  strict-antialias prefilter composed in), integer decimation (e.g.
+  48k -> 16k, the ML-ingest path) and banded composites of a stage chain
+  (``pipeline/fused.py``, e.g. 96k -> 44.1k): one periodic banded
   operator streamed through the fused banded step, i.e. the K1 kernel
-  (``ops/fused.py``) on the card, with static output counts;
+  (``ops/fused.py``) on the card, with static output counts; a
+  composite's first outputs follow its exact head rows instead;
 - the general two-stage walk (non-exact ratios, e.g. 44.1k -> 48.001k):
+  the strict-antialias prefilter where the plan has one (a 1:1 FIR, K1),
   the 2x polyphase prestage (K1, through ``ops/convolve.py``'s banded
   lowering), then the interpolated-coefficient polyphase emit
   (``stages.poly_emit``), whose output counts depend on the walk;
@@ -46,8 +50,9 @@ from ..ops.precision import (DISPATCH_MODES, PRECISION_MODES, dispatch_for,
                              dot_precision)
 from ..pipeline.buffer import SampleFIFO
 from . import stages
-from .oneshot import (DECIM_FFT_MIN_TAPS, _FFT_DECIM, _STRICT_AA,
-                      _decim_matrix, _fused_rational_matrix, superframe)
+from .oneshot import (DECIM_FFT_MIN_TAPS, FFT_CONV_MIN_TAPS, _FFT_AA,
+                      _FFT_DECIM, _decim_matrix, _fused_rational_matrix,
+                      superframe)
 from .plan import EnginePlan
 from .stages import CubicState, PolyState, PrestageState
 
@@ -196,15 +201,17 @@ class EngineCore:
     (constant.go:224-241); here all ``batch`` streams ride the leading
     tensor axis through one step per block.
 
-    Topologies: exact-rational two-stage plans and integer decimation
-    (the fused banded step, K1), the general two-stage walk of non-exact
-    ratios (K1 prestage, then the polyphase emit), cubic (QUICK plans;
-    no kernel) and integer upsampling (``dft_up``; K1).  The
-    strict-antialias prefilter of non-exact plans, banded composites and
-    FFT-routed decimation raise ``NotImplementedError``.
+    Topologies: exact-rational two-stage plans, integer decimation and
+    banded composites (``pipeline.fused.BandedPlan``; the fused banded
+    step, K1), the general two-stage walk of non-exact ratios (K1
+    prestage, then the polyphase emit; a strict-antialias prefilter
+    first, K1), cubic (QUICK plans; no kernel) and integer upsampling
+    (``dft_up``; K1).  Prefilters of ``FFT_CONV_MIN_TAPS`` taps or more
+    and FFT-routed decimation raise ``NotImplementedError``.
 
     Parameters:
-      plan:   built engine plan (filters + topology)
+      plan:   built engine plan (filters + topology), or a
+              ``pipeline.fused.BandedPlan``
       batch:  number of parallel streams S
       block:  internal micro-block size B (input samples per step): for
               the fused banded steps rounded up to a multiple of the
@@ -263,6 +270,12 @@ class EngineCore:
         p = self.plan
         self._band = None
         self._drop_override = None
+        self._head_t = None
+        # Exact-rational plans fold the strict-antialias prefilter into the
+        # fused banded operator (oneshot._fused_rational_matrix); the host
+        # FIFO of the prefilter runs only ahead of the non-exact walk.
+        self._has_aa = (p.kind == 'two_stage' and p.aa_taps > 0
+                        and not p.is_rational_exact)
         if p.kind == 'two_stage' and not p.is_rational_exact:
             self._build_walk()
             return
@@ -280,13 +293,24 @@ class EngineCore:
                 raise NotImplementedError(f"EngineCore: {_FFT_DECIM}")
             r, _, ipx = _decim_matrix(p)
         elif p.kind == 'two_stage':
-            # Fused streaming: the whole cascade as one periodic banded
-            # matmul (oneshot._fused_rational_matrix).
+            # Fused streaming: the whole cascade (and the strict-antialias
+            # prefilter, where present) as one periodic banded matmul
+            # (oneshot._fused_rational_matrix).
             r, _, ipx, lam = _fused_rational_matrix(p)
+        elif p.kind == 'banded':
+            # A composite of a stage chain (pipeline/fused.py): canonical
+            # period m reads (0^lam ++ x)[m*I : m*I + W].  Where the
+            # composite has an aperiodic head, its first n_head canonical
+            # outputs are the exact head rows over the input's prefix
+            # (_emit, _emit_device).
+            op = p.op
+            r, ipx, lam = op.R, op.I, op.lam
+            if op.head is not None:
+                self._head_t = torch.as_tensor(
+                    np.ascontiguousarray(op.head.T), dtype=torch.float64,
+                    device=self.device)
         else:
-            raise NotImplementedError(
-                f"EngineCore: topology {p.kind!r} is not ported yet "
-                "(ROADMAP.md, queue 1 item 3, the banded composite)")
+            raise ValueError(f"EngineCore: unknown topology {p.kind!r}")
         # Bound the per-block frames-overlap read amplification; the
         # super-period is capped near the requested block so streaming
         # latency stays at the caller's scale.
@@ -314,8 +338,8 @@ class EngineCore:
         """The general two-stage walk's constants (the JAX engine's
         ``poly_cap``, ``poly_keep`` and ``hist_size``)."""
         p = self.plan
-        if p.aa_taps > 0:
-            raise NotImplementedError(f"EngineCore: {_STRICT_AA}")
+        if p.aa_taps >= FFT_CONV_MIN_TAPS:
+            raise NotImplementedError(f"EngineCore: {_FFT_AA}")
         self.pre_coeffs = self._tensor(p.pre_coeffs)
         self.banks = tuple(self._tensor(b) for b in
                            (p.bank_a, p.bank_b, p.bank_c, p.bank_d))
@@ -341,6 +365,15 @@ class EngineCore:
         self.hist_size = self.poly_keep + m + p.lengths.core_delta()
         self._pre_bands = {}
         self._pre_band(self.block)
+        if self._has_aa:
+            # The prefilter's FIR runs one block at a time (_aa_push): one
+            # K1 operator for T-1+block samples, prepared here.
+            self._aa_coeffs = self._tensor(p.aa_coeffs)
+            self._aa_delay = (p.aa_taps - 1) // 2
+            self._aa_band = (convolve.band_operator(
+                self._aa_coeffs[None, :], p.aa_taps - 1 + self.block, 1,
+                self.dtype, self.device, self._tier)
+                if self.device.type == 'cuda' else None)
 
     def _build_cubic(self):
         p = self.plan
@@ -441,6 +474,95 @@ class EngineCore:
         self.samples_out = 0      # canonical samples emitted to the caller
         self._core_emitted = 0    # core outputs seen (incl. transient prefix)
         self._flushed = False
+        if self._head_t is not None:
+            # The head rows' input, 0^lam ++ (the input's first samples),
+            # in float64 on the engine's device (see _head_rows).
+            self._head_xe = torch.zeros((self.batch, self._head_t.shape[0]),
+                                        dtype=torch.float64,
+                                        device=self.device)
+            self._head_have = 0
+        if self._has_aa:
+            self._aa_carry = torch.zeros((self.batch, self.plan.aa_taps - 1),
+                                         dtype=self.dtype, device=self.device)
+            self._aa_raw = SampleFIFO(self.batch, capacity=2 * self.block,
+                                      dtype=self.np_dtype)
+            self._aa_causal = 0      # causal FIR outputs produced so far
+            self._aa_delivered = 0   # centered samples handed downstream
+
+    # -- strict-antialias prefilter (EnginePlan.aa_coeffs) ------------------
+
+    def _aa_push(self, x: np.ndarray) -> np.ndarray:
+        """Stream raw samples through the prefilter, one block a step (K1
+        on the card, reading the engine's operator); return the centered
+        (delay-compensated) filtered samples now available."""
+        self._aa_raw.write(x)
+        outs = []
+        while self._aa_raw.available() >= self.block:
+            blk = self._to_device(self._aa_raw.read(self.block))
+            self._aa_carry, y = stages.fir_process(
+                self._aa_coeffs, self._aa_carry, blk, self._tier,
+                band=self._aa_band)
+            outs.append(y.cpu().numpy())
+        if not outs:
+            return np.zeros((self.batch, 0), dtype=self.np_dtype)
+        y = np.concatenate(outs, axis=1)
+        skip = min(max(self._aa_delay - self._aa_causal, 0), y.shape[1])
+        self._aa_causal += y.shape[1]
+        y = y[:, skip:]
+        self._aa_delivered += y.shape[1]
+        return y
+
+    def _aa_drain(self, extra: int) -> np.ndarray:
+        """Flush the prefilter: the centered stream totals samples_in +
+        extra.
+
+        ``extra`` is the core's flush padding; filtering it through the
+        prefilter (instead of appending raw zeros after a hard truncation
+        at samples_in) lets the prefilter's tail extend into it, the same
+        semantics as the composed fused matrix and the one-shot path."""
+        target = self.samples_in + extra
+        remaining = target - self._aa_delivered
+        if remaining <= 0:
+            return np.zeros((self.batch, 0), dtype=self.np_dtype)
+        total = self._aa_raw.available() + extra + self._aa_delay
+        zpad = (_ceil_div(total, self.block) * self.block
+                - self._aa_raw.available())
+        out = self._aa_push(np.zeros((self.batch, zpad),
+                                     dtype=self.np_dtype))
+        out = out[:, :remaining]
+        self._aa_delivered = target
+        return out
+
+    # -- the banded composite's head rows ------------------------------------
+
+    def _collect_head(self, x) -> None:
+        """Keep the input's first samples (a numpy array or a tensor) that
+        the head rows read, in float64 on the engine's device."""
+        lam = self.plan.op.lam
+        take = min(self._head_xe.shape[1] - lam - self._head_have,
+                   x.shape[1])
+        if take > 0:
+            a = lam + self._head_have
+            self._head_xe[:, a:a + take] = torch.as_tensor(
+                np.ascontiguousarray(x[:, :take]) if isinstance(
+                    x, np.ndarray) else x[:, :take]).to(self._head_xe)
+            self._head_have += take
+
+    def _head_rows(self, n: int) -> torch.Tensor | None:
+        """Of the next ``n`` canonical outputs, those in a composite's
+        head: its exact rows over 0^lam ++ the input's prefix, [S, k] in
+        float64 (on the card whatever ``allow_tf32`` says) on the engine's
+        device; None where no output falls in a head.
+
+        Every call forms the product of all the head rows, one shape, so
+        the host and device routes give the same bits.  An output's row
+        reads only inputs consumed before its emit, and a sample not yet
+        collected is 0 against a 0 coefficient."""
+        k0 = self.samples_out
+        if self._head_t is None or not n or k0 >= self._head_t.shape[1]:
+            return None
+        k1 = min(self._head_t.shape[1], k0 + n)
+        return (self._head_xe @ self._head_t)[:, k0:k1]
 
     def set_carry(self, carry: np.ndarray) -> None:
         """Replace the step's carry (the last input samples it holds).
@@ -481,6 +603,10 @@ class EngineCore:
         if limit is not None:
             room = limit - self.samples_out
             out = out[:, :max(room, 0)]
+        head = self._head_rows(out.shape[1])
+        if head is not None:
+            out = np.array(out)
+            out[:, :head.shape[1]] = head.cpu().numpy()
         self.samples_out += out.shape[1]
         return out
 
@@ -501,6 +627,10 @@ class EngineCore:
         if x.shape[0] != self.batch:
             raise ValueError(f"expected {self.batch} streams, got {x.shape[0]}")
         self.samples_in += x.shape[1]
+        if self._head_t is not None:
+            self._collect_head(x)
+        if self._has_aa:
+            x = self._aa_push(x)
         self._pending.write(x)
         outs = []
         while self._pending.available() >= self.block:
@@ -537,7 +667,9 @@ class EngineCore:
         """Device-mode twin of :meth:`_emit` (keep the two in sync).
 
         All slice bounds are host-known (static counts), so nothing here
-        synchronizes with the device.
+        synchronizes with the device.  A composite's head rows are the
+        host path's (:meth:`_head_rows`, float64 then cast), so both
+        routes give the same bits.
         """
         drop = self._drop()
         start = 0
@@ -548,6 +680,10 @@ class EngineCore:
         if limit is not None:
             room = limit - self.samples_out
             out = out[:, :max(room, 0)]
+        head = self._head_rows(out.shape[1])
+        if head is not None:
+            out = torch.cat([head.to(self.dtype), out[:, head.shape[1]:]],
+                            dim=1)
         self.samples_out += out.shape[1]
         return out
 
@@ -588,6 +724,8 @@ class EngineCore:
             return torch.zeros((self.batch, 0), dtype=self.dtype,
                                device=self.device)
         self.samples_in += n
+        if self._head_t is not None:
+            self._collect_head(x)
         self.state, y, _n = self._step(self.state, x)
         ipx, p2 = self._device_params()
         return self._emit_device(y, (n // ipx) * p2, None)
@@ -686,7 +824,8 @@ class EngineCore:
         Per topology, the core's internal history bounds how much input it
         can hold back without emitting: the banded carry plus one window
         for the fused steps, ``hist_size`` for the general walk, the
-        prestage carry for DFT up, and the 3-sample window for cubic."""
+        prestage carry for DFT up, and the 3-sample window for cubic; plus
+        the strict-antialias prefilter's group delay when present."""
         p = self.plan
         if self._band is not None:
             hold = self._band.carry + self._band.wx
@@ -696,6 +835,8 @@ class EngineCore:
             hold = max(p.pre_taps - 1, 0)
         else:
             hold = self.hist_size
+        if self._has_aa:
+            hold += 2 * self._aa_delay
         return _ceil_div(hold, self.block) + 2
 
     def flush(self) -> np.ndarray:
@@ -711,6 +852,12 @@ class EngineCore:
         lm = self.plan.lengths
         canonical_total = lm.canonical(self.samples_in)
         z = lm.flush_pad(self.samples_in) if self.samples_in > 0 else 0
+        if self._has_aa:
+            # Run the flush padding through the prefilter, so the core sees
+            # aa(x ++ 0^z): the prefilter's tail extends into the padding
+            # (the same semantics as the fused matrix and the one-shot).
+            self._pending.write(self._aa_drain(z))
+            z = 0
         rem = self._pending.available()
         # Feed remainder + z zeros, rounded up to whole blocks (extra zeros
         # only produce post-canonical samples, which the limit trims).

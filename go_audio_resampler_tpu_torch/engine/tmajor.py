@@ -58,12 +58,15 @@ class TimeMajorEngine:
     synchronization (static output counts).  ``flush_device`` drains the
     exact canonical tail.
 
-    Supported topologies: the fused banded steps with static counts that
-    the port's ``EngineCore`` runs, i.e. exact-rational two-stage and
-    integer decimation.  ``dft_up``, cubic and the non-exact walk are not
-    fused banded steps and raise; so do the banded composite and the
-    FFT-routed decimation, which are not ported yet.  ``device`` is
-    'cuda' by default (K2); ``device='cpu'`` runs K2's plain version.
+    Supported topologies: the fused banded steps with static counts and
+    no aperiodic head, i.e. exact-rational two-stage (with the
+    strict-antialias prefilter composed in, where the plan has one),
+    integer decimation and head-free banded composites
+    (``pipeline.fused.BandedPlan``).  ``dft_up``, cubic and the non-exact
+    walk are not fused banded steps and raise, as do composites with a
+    head (``EngineCore`` runs them) and the FFT-routed decimation, which
+    is not ported yet.  ``device`` is 'cuda' by default (K2);
+    ``device='cpu'`` runs K2's plain version.
     ``dispatch`` and ``precision`` are ``EngineCore``'s: the same gate and
     the same tier, so the output equals ``EngineCore``'s.
     """
@@ -76,12 +79,13 @@ class TimeMajorEngine:
             raise NotImplementedError(
                 f"TimeMajorEngine: topology {plan.kind!r} is not a fused "
                 "banded step; use EngineCore")
-        if plan.kind == 'banded':
+        if plan.kind == 'banded' and plan.op.head is not None:
             raise NotImplementedError(
-                "TimeMajorEngine: banded composites are not ported yet "
-                "(ROADMAP.md, queue 1 item 3, the banded composite)")
-        # Borrow EngineCore's constants; it raises for what the port does
-        # not run (FFT-routed decimation, strict-antialias plans, knobs).
+                "TimeMajorEngine: banded composites with an aperiodic "
+                "head are not supported; use EngineCore.process_device")
+        # Borrow EngineCore's constants (the operator, carry, ipx, wx and
+        # p2 of every fused banded step, composites included); it raises
+        # for what the port does not run (FFT-routed decimation, knobs).
         eng = EngineCore(plan, batch=batch, block=block, dtype=dtype,
                          dispatch=dispatch, precision=precision,
                          device=device)

@@ -145,17 +145,19 @@ def _conv_banded(x: torch.Tensor, kernels: torch.Tensor, stride: int,
 
 
 def conv1d_poly(x: torch.Tensor, kernels: torch.Tensor, stride: int = 1,
-                precision: str = 'auto') -> torch.Tensor:
+                precision: str = 'auto',
+                band: ConvBand | None = None) -> torch.Tensor:
     """y[s, f, i] = sum_t x[s, i*stride + t] * kernels[f, t]  ('VALID').
 
     ``kernels`` rows are tap-reversed filters (design-time convention), so
     this correlation implements the reference's convolution direction.
-    The K1 kernel on a CUDA tensor, the frames lowering on a CPU tensor,
-    at the tier of ``precision``.
+    The K1 kernel on a CUDA tensor (reading ``band`` where given,
+    prepared at the tier of ``precision``), the frames lowering on a CPU
+    tensor, at the tier of ``precision``.
     """
     tier = _tier(precision)
     if x.device.type == "cuda":
-        return _conv_banded(x, kernels, stride, tier=tier)
+        return _conv_banded(x, kernels, stride, band=band, tier=tier)
     return _conv_frames(x, kernels, stride, tier)
 
 

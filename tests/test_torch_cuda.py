@@ -795,3 +795,149 @@ def test_walk_cubic_dft_up_engines_match_cpu_float64(cuda, rates_q):
                         d.flush_device()], 1)
         assert yd.shape == want.shape
         assert np.abs(yd.cpu().numpy() - want).max() <= TOL
+
+
+# -- strict antialias and banded composites ------------------------------------
+
+def _composite(stages):
+    """The banded composite of a stage chain, as the JAX package's API
+    builds it: ``fuse_chain`` over 48 kHz-based plans, with its stage
+    plans' ratio."""
+    from go_audio_resampler_tpu_torch.pipeline import BandedPlan, fuse_chain
+    plans = [plan_engine(48000, out, Quality.HIGH, strict_antialias=aa)
+             for out, aa in stages]
+    return BandedPlan(fuse_chain(plans),
+                      float(np.prod([p.ratio for p in plans])))
+
+
+#: 96k -> 44.1k HIGH (a composite with a 294-row head) and 192k -> 48k
+#: HIGH (head-free), as the API fuses them.
+COMPOSITE_96K = ((24000, False), (44100, True))
+COMPOSITE_192K = ((24000, False), (24000, False))
+STRICT = (48000, 44100, Quality.HIGH)
+STRICT_WALK = (48000, 44099, Quality.HIGH)
+
+
+def _strict_plan(which):
+    if which in (COMPOSITE_96K, COMPOSITE_192K):
+        return _composite(which)
+    return plan_engine(*which, strict_antialias=True)
+
+
+@pytest.mark.cuda
+def test_k1_at_the_composite_shape(cuda):
+    """K1 at the 96k -> 44.1k composite's step (block 2048: R_t [3861, 735]
+    over 1600, 256 streams of carry 3690 + block 3200, 2 frames; p2 odd,
+    the band split across a cluster) against its plain version."""
+    eng = EngineCore(_composite(COMPOSITE_96K), batch=256, block=2048)
+    r_t, ipx, wx, p2, carry, op = eng._band
+    assert (tuple(r_t.shape), ipx, carry, eng.block) == ((3861, 735), 1600,
+                                                         3690, 3200)
+    assert op.split > 1
+    x = _data(256, carry + eng.block, cuda, 40)
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=2, tier="highest")
+    before = fused.launches
+    y = fused.fused_resample(x, r_t, op=op, **kw)
+    torch.cuda.synchronize()
+    assert fused.launches == before + 1
+    ref = fused.fused_resample_reference(x, r_t, **kw)
+    assert y.shape == ref.shape == (256, 2 * 735)
+    assert (y - ref).abs().max().item() <= TOL * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,prepares", [
+    (COMPOSITE_96K, 1), (COMPOSITE_192K, 1), (STRICT, 1), (STRICT_WALK, 2)])
+def test_strict_and_composite_operators_prepared_once_per_engine(
+        cuda, monkeypatch, which, prepares):
+    """The composites' and the strict exact plan's fused operator, and the
+    walk's prefilter and prestage operators, are prepared when the engine
+    is built; streaming and flushing prepare nothing."""
+    plan = _strict_plan(which)
+    calls = []
+    real = banded.prepare
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(banded, "prepare", counted)
+    eng = EngineCore(plan, batch=4, block=2048)
+    assert len(calls) == prepares
+    x = np.random.default_rng(41).normal(size=(4, 5 * 2048 + 99)).astype(
+        np.float32)
+    before = fused.launches
+    eng.process(x[:, :3000])
+    eng.process(x[:, 3000:])
+    eng.flush()
+    assert len(calls) == prepares
+    assert fused.launches > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [COMPOSITE_96K, COMPOSITE_192K, STRICT,
+                                   STRICT_WALK])
+def test_strict_and_composite_engines_match_cpu_float64(cuda, which):
+    """Each path on the card within 2e-5 of the float64 CPU engine through
+    process(); the static-count ones also through process_device (equal
+    to process() bit for bit) and, head-free, TimeMajorEngine (K2)."""
+    plan = _strict_plan(which)
+    x = np.random.default_rng(42).normal(size=(5, 16000)).astype(np.float32)
+    ref = EngineCore(plan, batch=5, block=2048, dtype=torch.float64,
+                     device="cpu")
+    want = np.concatenate([ref.process(x.astype(np.float64)), ref.flush()],
+                          1)
+    dev = EngineCore(plan, batch=5, block=2048)
+    got = np.concatenate([dev.process(x[:, :4000]), dev.process(x[:, 4000:]),
+                          dev.flush()], 1)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= TOL
+    mult = dev.device_chunk_multiple
+    if mult is None:
+        return
+    n = x.shape[1] // mult * mult
+    d = EngineCore(plan, batch=5, block=2048)
+    xd = torch.from_numpy(x[:, :n]).to(cuda)
+    yd = torch.cat([d.process_device(xd[:, :mult]),
+                    d.process_device(xd[:, mult:]), d.flush_device()], 1)
+    h = EngineCore(plan, batch=5, block=2048)
+    yh = np.concatenate([h.process(x[:, :777]), h.process(x[:, 777:n]),
+                         h.flush()], 1)
+    assert np.array_equal(yd.cpu().numpy(), yh)
+    if plan.kind == "banded" and plan.op.head is not None:
+        with pytest.raises(NotImplementedError, match="aperiodic head"):
+            TimeMajorEngine(plan, batch=5, block=2048)
+        return
+    tm = TimeMajorEngine(plan, batch=5, block=2048)
+    before = tmajor.launches
+    yt = torch.cat([tm.process_device(xd.t().contiguous()),
+                    tm.flush_device()], 0)
+    assert tmajor.launches > before
+    assert yt.shape == (yd.shape[1], 5)
+    assert (yt.t() - yd).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rates_q", [STRICT, STRICT_WALK])
+def test_strict_oneshot_matches_cpu_float64(cuda, monkeypatch, rates_q):
+    """The one-shot of the strict exact plan (K1 with lam) and of the
+    walk's (the prefilter on K1, then K3) within 2e-5 of the float64 CPU
+    run; ``_oneshot_apply`` prepares nothing."""
+    plan = plan_engine(*rates_q, strict_antialias=True)
+    x = np.random.default_rng(43).normal(size=(3, 5000)).astype(np.float32)
+    want = run_oneshot(plan, x.astype(np.float64), device="cpu").numpy()
+    xd = torch.from_numpy(x).to(cuda)
+    aux = oneshot._oneshot_aux(plan, 5000, torch.float32, cuda,
+                               tier="highest")
+
+    def no_preparation(*a, **kw):
+        raise AssertionError("operator prepared in the apply")
+
+    monkeypatch.setattr(banded, "prepare", no_preparation)
+    before = (fused.launches, general.launches)
+    got = oneshot._oneshot_apply(plan, xd, aux, tier="highest")
+    torch.cuda.synchronize()
+    assert (fused.launches - before[0], general.launches - before[1]) == (
+        (1, 0) if plan.is_rational_exact else (1, 1))
+    assert got.shape == want.shape
+    assert np.abs(got.cpu().numpy() - want).max() <= TOL

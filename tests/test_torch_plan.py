@@ -170,10 +170,16 @@ def test_plan_from_arrays_copies_arrays():
 
 
 def test_strict_antialias_matrix_not_ported():
-    tp = tplan.plan_engine(48000, 44100, TQuality.HIGH, strict_antialias=True)
-    assert tp.is_rational_exact and tp.aa_taps > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        toneshot._fused_rational_matrix(tp)
+    """The strict-antialias prefilter composed into the fused matrix
+    (``pipeline/fused.compose``) is bit-equal to the JAX package's: R
+    [147, 841] over 160 inputs with the prefilter's context lam = 245."""
+    jp, tp = _plans((48000, 44100), JQuality.HIGH, strict_antialias=True)
+    assert tp.is_rational_exact and tp.aa_taps == 491
+    jr, jp2, jipx, jlam = joneshot._fused_rational_matrix(jp)
+    tr, tp2, tipx, tlam = toneshot._fused_rational_matrix(tp)
+    assert (tr.shape, tp2, tipx, tlam) == ((147, 841), 147, 160, 245)
+    assert (jp2, jipx, jlam) == (tp2, tipx, tlam)
+    assert jr.dtype == tr.dtype and np.array_equal(jr, tr)
 
 
 @pytest.mark.parametrize("rates", [

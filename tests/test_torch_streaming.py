@@ -307,6 +307,7 @@ def test_port_imports_no_jax():
             "import go_audio_resampler_tpu_torch.ops.convolve\n"
             "import go_audio_resampler_tpu_torch.engine.tmajor\n"
             "import go_audio_resampler_tpu_torch.engine.oneshot\n"
+            "import go_audio_resampler_tpu_torch.pipeline.fused\n"
             "import go_audio_resampler_tpu_torch.utils\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == "
@@ -369,12 +370,16 @@ def test_default_device_without_cuda_raises():
 
 
 @pytest.mark.parametrize("rates,kw", [
-    ((48000, 44100, Quality.HIGH), {"strict_antialias": True}),
+    ((48000, 44101, Quality.HIGH), {"strict_antialias": True}),  # the walk's
     ((48000, 44099, Quality.HIGH), {"strict_antialias": True}),  # the walk's
 ])
-def test_unported_topologies_raise(rates, kw):
+def test_unported_topologies_raise(rates, kw, monkeypatch):
+    """The walk's prefilter at FFT_CONV_MIN_TAPS taps or more (the JAX
+    package's FFT route) is not ported."""
+    plan = plan_engine(*rates, **kw)
+    monkeypatch.setattr(streaming, "FFT_CONV_MIN_TAPS", plan.aa_taps)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineCore(plan_engine(*rates, **kw), device="cpu")
+        EngineCore(plan, device="cpu")
 
 
 @pytest.mark.parametrize("kw,exc", [

@@ -231,7 +231,7 @@ def test_steps_go_through_the_k2_wrapper(monkeypatch):
     ((44100, 48001, Quality.HIGH), {}),         # non-exact walk
     ((48000, 96000, Quality.HIGH), {}),         # dft_up
     ((44100, 48000, Quality.QUICK), {}),        # cubic
-    ((48000, 44100, Quality.HIGH), {"strict_antialias": True}),
+    ((48000, 44099, Quality.HIGH), {"strict_antialias": True}),  # walk + aa
 ])
 def test_rejects_unsupported(rates, kw):
     with pytest.raises(NotImplementedError):
