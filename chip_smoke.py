@@ -101,10 +101,45 @@ is printed):
       K3), 64 streams x 2 s: exact launches, 4 streams against the
       float64 CPU ``oneshot``.
 
+12. Public API and FFT routes (256 channels, ``MAX_CHANNELS``, of 10 s
+   unless said otherwise; each sub-path prints its wall time, input
+   Msamples/s, device span, launches and its comparison):
+   API-A. 44.1k -> 48k HIGH through ``new_resampler(Config(...,
+      dtype=float32, max_input_size=2352))``: ``process_multi_device`` /
+      ``flush_multi_device`` equal bit for bit to ``EngineCore`` on the
+      Resampler's own plan at block 2352, to ``process_multi`` and to
+      ``stream_multi(out='host')``; derived K1 launches; 4 channels
+      within 2e-5 of max|y| of the float64 CPU run; THD <= -140 dB;
+   API-B. 96k -> 44.1k HIGH (auto strict antialias, the composite with
+      head rows): whether its stage plans equal phase 11's (then bit for
+      bit against phase 11's composite engine); within 2e-5 of max|y| of
+      the float64 CPU run; THD <= -130 dB, the 30 kHz tone rejected by
+      >= 100 dB;
+   API-C. 48k -> 16k HIGH (a half-band and a polyphase stage fused): K1
+      at its step's shape against its plain version, timed beside
+      ``F.conv1d`` with its bound; the device route against float64;
+   API-D. 44.1k -> 3001 VERY_HIGH (a composite, then the walk behind its
+      prefilter): ``process_multi``/``flush_multi`` against float64;
+      ``process_multi_device`` refuses with the JAX diagnostic;
+   convenience: ``resample_stereo`` 44.1k -> 48k (K1) and
+      ``resample_mono`` 44.1k -> 48.001k (K3), 1 s, against float64;
+      ``new_engine_float32`` equal bit for bit to ``EngineCore``;
+   FFT-1. ``fft_oneshot`` (cuFFT) within 1e-5 of max|y| of ``oneshot``
+      (K1), 64 x 2 s, decimate 96k -> 48k VERY_HIGH and dft_up 48k -> 96k
+      HIGH, with each route's kernels' device time;
+   FFT-2. ``EngineCore`` of 44.1k -> 3001 VERY_HIGH strict (the 7,841-tap
+      prefilter by overlap-save) through ``process()``: one K1 launch (the
+      prestage) a block, against float64, the prefilter's step time;
+   FFT-3. the FFT decimation step (``DECIM_FFT_MIN_TAPS`` lowered for
+      this sub-phase only), 96k -> 48k VERY_HIGH, 469 blocks of 2048:
+      ``process_device`` equal bit for bit to ``process()`` at the same
+      blocks, both within 1e-5 of max|y| of the K1 route;
+      ``TimeMajorEngine`` refuses it.
+
 Each path is driven with every launch count set to 0 just before it and
 read just after; launches made to compare a kernel with its plain version
 are not counted.  The phases run in the order 1, 2, 8 (kernels and
-one-shot), 3, 4, 8 (engines and gate), 5, 6, 9, 10, 11, 7.  The last three
+one-shot), 3, 4, 8 (engines and gate), 5, 6, 9, 10, 11, 12, 7.  The last three
 lines are the card, the kernels as JSON, and ``{"ok": true, "device":
 {...}}``.  Every time printed is this card's, measured in this run.
 """
@@ -2042,6 +2077,628 @@ def strict_walk_path(gen, card: str) -> dict:
             "oneshot_k1": oneshot_counts[0], "oneshot_k3": oneshot_counts[2]}
 
 
+# -- public API and FFT routes (phase 12) ------------------------------------
+
+#: Phase 12: the public API's chains at its widest batch (MAX_CHANNELS =
+#: 256 channels of 10 s each) and the FFT overlap-save routes.  The FFT
+#: routes' float32 tolerance against K1 is tests/test_fftstage.py:56-63's.
+API_CHANNELS = 256
+FFT_TOL = 1e-5
+
+
+def timed(fn):
+    """``fn()`` between two CUDA events: its result, the wall time (s) to
+    the end of the device's work, and the device span (ms) between the
+    events."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end)
+
+
+def api_resampler(rate_in, rate_out, preset, channels=API_CHANNELS, **kw):
+    """``new_resampler`` of the port's public API, on the card unless
+    ``device`` says otherwise."""
+    import go_audio_resampler_tpu_torch as gar
+    return gar.new_resampler(gar.Config(
+        rate_in, rate_out, channels=channels,
+        quality=gar.QualitySpec(preset=gar.QualityPreset(preset)), **kw))
+
+
+def api_float64(rate_in, rate_out, preset, x4: np.ndarray) -> np.ndarray:
+    """The public API's float64 CPU run on ``x4``: ``process_multi`` of the
+    whole input, then ``flush_multi``."""
+    r = api_resampler(rate_in, rate_out, preset, channels=x4.shape[0],
+                      device="cpu")
+    return np.concatenate([np.stack(r.process_multi(list(
+        x4.astype(np.float64)))), np.stack(r.flush_multi())], axis=1)
+
+
+def rel(got: np.ndarray, want: np.ndarray) -> float:
+    """max |got - want| over max |want| (shapes must agree)."""
+    require(got.shape == want.shape, f"shapes {got.shape} and {want.shape}")
+    return float(np.abs(got.astype(np.float64) - want).max()
+                 / np.abs(want).max())
+
+
+def api_input(gen, rate: int, n: int, tones=(1000.0,)):
+    """[API_CHANNELS, n] float32 noise on the card, the first channels
+    sines at ``tones``."""
+    import torch
+    from go_audio_resampler_tpu_torch.utils import signals
+    x = 0.5 * torch.randn((API_CHANNELS, n), generator=gen, device="cuda")
+    for i, f in enumerate(tones):
+        x[i] = torch.as_tensor(signals.sine(n, f, rate), dtype=torch.float32,
+                               device="cuda")
+    return x
+
+
+class ResamplerSteps:
+    """A ``Resampler`` seen as a streaming engine by :func:`timed_run`
+    and :func:`warm_steps`: its device route, one engine block a step."""
+
+    def __init__(self, r):
+        self.r, self.block = r, r._exec[0].block
+
+    def process_device(self, x):
+        return self.r.process_multi_device(x)
+
+    def flush_device(self):
+        return self.r.flush_multi_device()
+
+    def reset(self):
+        self.r.reset()
+
+
+def device_route(eng, x, chunks):
+    """``x`` through ``eng.process_device`` in ``chunks``, then
+    ``eng.flush_device``, twice (the second after ``reset()``, its
+    allocator cache warm); ``eng`` is an engine, or a ``Resampler``,
+    whose device route is then ``process_multi_device`` and
+    ``flush_multi_device``.  Returns the first run's output on the card,
+    its (K1, K2, K3) launches, and each run's :func:`timed_run` record.
+    The runs must agree bit for bit and in launches."""
+    import torch
+    steps = eng if hasattr(eng, "process_device") else ResamplerSteps(eng)
+    records, ys, counts = [], [], []
+    for _ in range(2):
+        steps.reset()
+        reset_launches()
+        outs, st = timed_run(steps, lambda a, b: x[:, a:b], chunks)
+        counts.append(launch_counts())
+        ys.append(torch.cat(outs, dim=1))
+        records.append(st)
+        del outs
+    require(counts[0] == counts[1] and torch.equal(ys[0], ys[1]),
+            f"the warm run differs: launches {counts}")
+    return ys[0], counts[0], records
+
+
+def route_line(n_in: int, records) -> str:
+    """The cold and warm runs of :func:`device_route`, as printed."""
+    return "; ".join(
+        f"{name} {st['wall']:.4f} s = {n_in / st['wall'] / 1e6:.1f} "
+        f"Msamples/s in, {run_stats(st)}"
+        for name, st in zip(("cold", "warm"), records))
+
+
+def api_a(gen, card: str) -> int:
+    """API-A: 44.1k -> 48k HIGH through ``new_resampler``, 256 channels x
+    10 s: the device route against ``EngineCore`` on the Resampler's own
+    plan (bit for bit), ``process_multi`` and ``stream_multi`` against it
+    (bit for bit), 4 channels against the float64 CPU run, K1 launches and
+    THD; returns K1's launches."""
+    import torch
+    from go_audio_resampler_tpu_torch import EngineCore
+    from go_audio_resampler_tpu_torch.utils import metrics
+
+    r = api_resampler(RATE_IN, RATE_OUT, 3, dtype=np.float32,
+                      max_input_size=BLOCK)
+    eng = r._exec[0]
+    mult = r.device_chunk_multiple
+    require(len(r._exec) == 1 and eng.device.type == "cuda"
+            and eng.block == BLOCK and mult and BLOCK % mult == 0,
+            f"API-A: exec {[e.plan.kind for e in r._exec]}, block "
+            f"{eng.block}, multiple {mult}")
+    ipx, p2 = eng._device_params()
+    n = RATE_IN * SECONDS
+    chunks = [(a, min(n, a + BLOCK)) for a in range(0, n, BLOCK)]
+    require(all((b - a) % mult == 0 for a, b in chunks),
+            "API-A: a chunk is not a multiple of the device granule")
+    x = api_input(gen, RATE_IN, n)
+    canonical = eng.plan.lengths.canonical(n)
+    torch.empty((API_CHANNELS, canonical + BLOCK), device="cuda")
+    y, counts, records = device_route(r, x, chunks)
+    expected = expected_launches(eng.plan, n, len(chunks), ipx, p2,
+                                 eng.block, eng._drop_override)
+    require(tuple(y.shape) == (API_CHANNELS, canonical)
+            and counts == (expected, 0, 0)
+            and bool(torch.isfinite(y).all()),
+            f"API-A: output {tuple(y.shape)}, canonical {canonical}, "
+            f"launches {counts} (expected ({expected}, 0, 0))")
+    direct = EngineCore(eng.plan, batch=API_CHANNELS, block=BLOCK)
+    outs, direct_st = timed_run(direct, lambda a, b: x[:, a:b], chunks)
+    same_direct = bool(torch.equal(y, torch.cat(outs, dim=1)))
+    del outs
+    # The wrapper's cost a step: warm steps through the Resampler and
+    # through its engine.
+    steps_api = warm_steps("API-A step, Resampler.process_multi_device",
+                           ResamplerSteps(r), x, card)
+    steps_eng = warm_steps("API-A step, EngineCore.process_device", direct,
+                           x, card)
+    del direct
+    y_np = y.cpu().numpy()
+    del y
+    x_np = x.cpu().numpy()
+    del x
+    r.reset()
+    y_multi, wall_m, dev_m = timed(lambda: np.concatenate(
+        [np.stack(r.process_multi(list(x_np))), np.stack(r.flush_multi())],
+        axis=1))
+    same_multi = bool(np.array_equal(y_multi, y_np))
+    del y_multi
+    r.reset()
+    step = 16 * BLOCK
+    y_stream, wall_s, dev_s = timed(lambda: np.concatenate(list(
+        r.stream_multi(x_np[:, a:a + step] for a in range(0, n, step))),
+        axis=1))
+    same_stream = bool(np.array_equal(y_stream, y_np))
+    del y_stream
+    want = api_float64(RATE_IN, RATE_OUT, 3, x_np[:4])
+    err = rel(y_np[:4], want)
+    thd = metrics.thd(y_np[0].astype(np.float64), RATE_OUT, 1000.0, 16384)
+    rate = API_CHANNELS * n / 1e6
+    print(f"  API-A 44.1k->48k HIGH, new_resampler(Config(channels="
+          f"{API_CHANNELS}, float32, max_input_size={BLOCK})): plan "
+          f"{eng.plan.kind}, R_t {tuple(eng._band.r_t.shape)} over {ipx}; "
+          f"process_multi_device in {len(chunks)} chunks + "
+          f"flush_multi_device: {route_line(rate * 1e6, records)}; launches "
+          f"(K1, K2, K3) {counts} (derived {expected}); EngineCore on its "
+          f"plan {direct_st['wall']:.4f} s = {rate / direct_st['wall']:.1f} "
+          f"Msamples/s in, {run_stats(direct_st)}; warm steps: host enqueue "
+          f"{steps_api['enqueue_ms']:.5f} ms (Resampler) and "
+          f"{steps_eng['enqueue_ms']:.5f} ms (EngineCore), idle "
+          f"{steps_api['idle']:.3f} and {steps_eng['idle']:.3f}; "
+          f"process_multi + flush_multi {wall_m:.4f} "
+          f"s = {rate / wall_m:.1f} Msamples/s in (span {dev_m:.3f} ms); "
+          f"stream_multi(out='host') {wall_s:.4f} s = {rate / wall_s:.1f} "
+          f"Msamples/s in (span {dev_s:.3f} ms) on {card}")
+    print(f"  API-A: length {y_np.shape[1]} == canonical {canonical}; equal "
+          f"bit for bit to EngineCore on r._exec[0].plan at block {BLOCK}: "
+          f"{same_direct}, to process_multi: {same_multi}, to stream_multi: "
+          f"{same_stream}; max |cuda f32 - cpu f64| over 4 channels = "
+          f"{err:.3g} of max|y|; THD of the 1 kHz channel = {thd:.2f} dB "
+          f"(floor {THD_FLOOR_DB})")
+    require(same_direct and same_multi and same_stream,
+            "API-A: the routes differ")
+    require(err <= ENGINE_TOL, f"API-A vs float64: {err}")
+    require(thd <= THD_FLOOR_DB, f"API-A THD {thd} dB")
+    return counts[0]
+
+
+def alias_db(y: np.ndarray) -> float:
+    """Rejection (dB) of a unit tone whose alias is ``y``: its middle
+    half's RMS, as a peak amplitude, below 0 dBFS."""
+    mid = y[y.shape[0] // 4:-(y.shape[0] // 4)]
+    return -20.0 * np.log10(max(np.sqrt(np.mean(mid ** 2)) * np.sqrt(2.0),
+                                1e-12))
+
+
+def api_b(gen, card: str) -> int:
+    """API-B: 96k -> 44.1k HIGH through ``new_resampler`` (the auto strict
+    antialias and the composite with head rows), 256 channels x 10 s
+    through the device route; returns K1's launches."""
+    import torch
+    from go_audio_resampler_tpu_torch import EngineCore, Quality, plan_engine
+    from go_audio_resampler_tpu_torch.utils import metrics
+
+    t0 = time.perf_counter()
+    r = api_resampler(COMP_IN, COMP_OUT, 3)
+    build_s = time.perf_counter() - t0
+    eng = r._exec[0]
+    op = eng.plan.op
+    require(len(r._exec) == 1 and eng.plan.kind == "banded"
+            and op.head is not None and r.dtype == np.float32,
+            f"API-B: exec {[e.plan.kind for e in r._exec]}, dtype {r.dtype}")
+    stage_plans = [e.plan for e in r._engines]
+    p11 = [plan_engine(48000, out, Quality.HIGH, strict_antialias=aa)
+           for out, aa in ((24000, False), (44100, True))]
+    same_plans = [a.fingerprint == b.fingerprint
+                  for a, b in zip(stage_plans, p11)]
+    print(f"  API-B 96k->44.1k HIGH: {len(r._engines)} stages (aa taps "
+          f"{[p.aa_taps for p in stage_plans]}, phase 11's "
+          f"{[p.aa_taps for p in p11]}); stage plans equal to phase 11's: "
+          f"{same_plans}; composite P {op.P}, I {op.I}, W {op.W}, lam "
+          f"{op.lam}, head {op.head.shape}; built in {build_s:.3f} s")
+    mult = r.device_chunk_multiple
+    n = COMP_IN * SECONDS
+    chunks = [(a, min(n, a + eng.block)) for a in range(0, n, eng.block)]
+    require(all((b - a) % mult == 0 for a, b in chunks),
+            f"API-B: chunks not multiples of {mult}")
+    x = api_input(gen, COMP_IN, n, tones=(1000.0, 30000.0))
+    canonical = eng.plan.lengths.canonical(n)
+    torch.empty((API_CHANNELS, canonical + eng.block), device="cuda")
+    ipx, p2 = eng._device_params()
+    y, counts, records = device_route(r, x, chunks)
+    expected = expected_launches(eng.plan, n, len(chunks), ipx, p2,
+                                 eng.block, eng._drop_override)
+    require(tuple(y.shape) == (API_CHANNELS, canonical)
+            and counts == (expected, 0, 0)
+            and bool(torch.isfinite(y).all()),
+            f"API-B: output {tuple(y.shape)}, launches {counts} (expected "
+            f"{expected})")
+    if all(same_plans):
+        ref = EngineCore(composite_plan(((24000, False), (44100, True))),
+                         batch=API_CHANNELS, block=eng.block)
+        y_ref = torch.cat([ref.process_device(x[:, a:b]) for a, b in chunks]
+                          + [ref.flush_device()], dim=1)
+        same = bool(torch.equal(y, y_ref))
+        del y_ref, ref
+        print(f"  API-B: equal bit for bit to phase 11's composite engine at "
+              f"block {eng.block}: {same}")
+        require(same, "API-B differs from phase 11's composite engine")
+    y_np = y.cpu().numpy()
+    del y
+    x4 = x[:4].cpu().numpy()
+    del x
+    want = api_float64(COMP_IN, COMP_OUT, 3, x4)
+    err = rel(y_np[:4], want)
+    thd = metrics.thd(y_np[0].astype(np.float64), COMP_OUT, 1000.0, 16384)
+    alias = alias_db(y_np[1].astype(np.float64))
+    print(f"  API-B: {API_CHANNELS} channels x {n} samples through "
+          f"process_multi_device in {len(chunks)} chunks of {eng.block}: "
+          f"{route_line(API_CHANNELS * n, records)}; launches (K1, K2, K3) "
+          f"{counts}; "
+          f"length {y_np.shape[1]} == canonical {canonical}; max |cuda f32 - "
+          f"cpu f64| over 4 channels = {err:.3g} of max|y|; THD of the 1 kHz "
+          f"channel = {thd:.2f} dB (floor {THD_COMP_DB}); the 30 kHz tone "
+          f"rejected by {alias:.1f} dB (floor {ALIAS_DB}) on {card}")
+    require(err <= ENGINE_TOL, f"API-B vs float64: {err}")
+    require(thd <= THD_COMP_DB, f"API-B THD {thd} dB")
+    require(alias >= ALIAS_DB, f"API-B alias rejection {alias} dB")
+    return counts[0]
+
+
+def api_c(gen, card: str) -> dict:
+    """API-C: 48k -> 16k HIGH through ``new_resampler`` (a half-band and
+    a polyphase stage fused into one composite): K1 at its step's shape
+    against its plain version, timed beside ``F.conv1d`` with its bound;
+    256 channels x 10 s through the device route; returns K1's record."""
+    import torch
+
+    r = api_resampler(DECIM_IN, DECIM_OUT, 3)
+    eng = r._exec[0]
+    kinds = [s.type.name for s in r.pipeline.stages]
+    require(kinds == ["HALF_BAND", "POLYPHASE"] and len(r._exec) == 1
+            and eng.plan.kind == "banded" and eng.plan.op.head is None,
+            f"API-C: stages {kinds}, exec {[e.plan.kind for e in r._exec]}")
+    r_t, ipx, wx, p2, carry, _ = eng._band
+    print(f"  API-C 48k->16k HIGH: stages {kinds}, composite R_t "
+          f"{tuple(r_t.shape)} over ipx {ipx}, block {eng.block}, carry "
+          f"{carry}; the step's K1 shape is [{API_CHANNELS}, "
+          f"{carry + eng.block}] x R_t {tuple(r_t.shape)}, "
+          f"{eng.block // ipx} frame(s)")
+    record = k1_engine_shape("API 48k->16k", eng, gen, API_CHANNELS)
+    n = DECIM_IN * SECONDS
+    n -= n % eng.block
+    chunks = [(a, a + eng.block) for a in range(0, n, eng.block)]
+    x = api_input(gen, DECIM_IN, n)
+    canonical = eng.plan.lengths.canonical(n)
+    torch.empty((API_CHANNELS, canonical + eng.block), device="cuda")
+    y, counts, records = device_route(r, x, chunks)
+    expected = expected_launches(eng.plan, n, len(chunks), ipx, p2,
+                                 eng.block, eng._drop_override)
+    require(tuple(y.shape) == (API_CHANNELS, canonical)
+            and counts == (expected, 0, 0),
+            f"API-C: output {tuple(y.shape)}, launches {counts} (expected "
+            f"{expected})")
+    err = rel(y[:4].cpu().numpy(),
+              api_float64(DECIM_IN, DECIM_OUT, 3, x[:4].cpu().numpy()))
+    print(f"  API-C: {API_CHANNELS} channels x {n} samples through "
+          f"process_multi_device in {len(chunks)} chunks: "
+          f"{route_line(API_CHANNELS * n, records)}; launches (K1, K2, K3) "
+          f"{counts}; length "
+          f"{y.shape[1]} == canonical {canonical}; max |cuda f32 - cpu f64| "
+          f"over 4 channels = {err:.3g} of max|y| on {card}")
+    require(err <= ENGINE_TOL, f"API-C vs float64: {err}")
+    return {**record, "launches": counts[0]}
+
+
+def api_d(gen, card: str) -> tuple:
+    """API-D: 44.1k -> 3001 VERY_HIGH through ``new_resampler``: a
+    composite segment, then the non-exact walk behind its prefilter;
+    256 channels x 10 s through ``process_multi``/``flush_multi``;
+    returns the (K1, K2, K3) launches."""
+    r = api_resampler(RATE_IN, 3001, 4)
+    kinds = [e.plan.kind for e in r._exec]
+    require(kinds == ["banded", "two_stage"]
+            and r.device_chunk_multiple is None,
+            f"API-D: exec {kinds}, granule {r.device_chunk_multiple}")
+    try:
+        r.process_multi_device(np.zeros((API_CHANNELS, 1024), np.float32))
+        refused = ""
+    except NotImplementedError as err:
+        refused = str(err)
+    require("segment" in refused and r._entry_mode is None,
+            f"API-D: process_multi_device did not refuse ({refused!r})")
+    walk = r._exec[1]
+    n = RATE_IN * SECONDS
+    x_np = api_input(gen, RATE_IN, n).cpu().numpy()
+    reset_launches()
+    y, wall, dev = timed(lambda: np.concatenate(
+        [np.stack(r.process_multi(list(x_np))), np.stack(r.flush_multi())],
+        axis=1))
+    counts = launch_counts()
+    require(y.shape[0] == API_CHANNELS and np.isfinite(y).all()
+            and counts[0] > 0 and counts[1] == 0,
+            f"API-D: output {y.shape}, launches {counts}")
+    want = api_float64(RATE_IN, 3001, 4, x_np[:4])
+    err = rel(y[:4], want)
+    print(f"  API-D 44.1k->3001 VERY_HIGH: exec {kinds} (the walk's "
+          f"prefilter {walk.plan.aa_taps} taps, "
+          f"{'FFT' if walk._aa_spec is not None else 'K1'}); "
+          f"device_chunk_multiple None, process_multi_device refused: "
+          f"{refused[:60]!r}...; {API_CHANNELS} channels x {n} samples "
+          f"through process_multi + flush_multi in {wall:.4f} s = "
+          f"{API_CHANNELS * n / wall / 1e6:.1f} Msamples/s in, span "
+          f"{dev:.3f} ms, launches (K1, K2, K3) {counts}; length "
+          f"{y.shape[1]}; max |cuda f32 - cpu f64| over 4 channels = "
+          f"{err:.3g} of max|y| on {card}")
+    require(err <= ENGINE_TOL, f"API-D vs float64: {err}")
+    return counts
+
+
+def convenience_phase(gen, card: str) -> tuple:
+    """``resample_stereo`` at 44.1k -> 48k (K1) and ``resample_mono`` at
+    44.1k -> 48.001k (K3), 1 s, each against the float64 CPU run;
+    ``new_engine_float32`` against ``EngineCore`` at its block, 10 s,
+    bit for bit; returns the (K1, K3) launches of the one-shots."""
+    import torch
+    import go_audio_resampler_tpu_torch as gar
+    from go_audio_resampler_tpu_torch import EngineCore
+
+    x = (0.5 * torch.randn((2, RATE_IN), generator=gen, device="cuda")
+         ).cpu().double().numpy()
+    reset_launches()
+    (lo, ro), wall_s, dev_s = timed(lambda: gar.resample_stereo(
+        x[0], x[1], RATE_IN, RATE_OUT))
+    stereo = launch_counts()
+    want = np.stack(gar.resample_stereo(x[0], x[1], RATE_IN, RATE_OUT,
+                                        device="cpu"))
+    require(lo.dtype == np.float64, f"resample_stereo returned {lo.dtype}")
+    err_s = rel(np.stack([lo, ro]), want)
+    reset_launches()
+    ym, wall_m, dev_m = timed(lambda: gar.resample_mono(x[0], RATE_IN,
+                                                        WALK_OUT))
+    mono = launch_counts()
+    err_m = rel(ym, gar.resample_mono(x[0], RATE_IN, WALK_OUT,
+                                      device="cpu"))
+    e = gar.new_engine_float32(RATE_IN, RATE_OUT)
+    ref = EngineCore(e.plan, batch=1, block=2048)
+    xs = (0.5 * torch.randn(RATE_IN * SECONDS, generator=gen,
+                            device="cuda")).cpu().numpy()
+    cuts = [0] + sorted(np.random.default_rng(14).integers(
+        1, xs.size, 40).tolist()) + [xs.size]
+    got = np.concatenate([e.process(xs[a:b]) for a, b in zip(cuts[:-1],
+                                                             cuts[1:])]
+                         + [e.flush()])
+    direct = np.concatenate([ref.process(xs[None]), ref.flush()], axis=1)[0]
+    same = got.dtype == np.float32 and bool(np.array_equal(got, direct))
+    print(f"  convenience: resample_stereo 44.1k->48k [2, {RATE_IN}] in "
+          f"{wall_s:.4f} s (span {dev_s:.3f} ms, host design included), "
+          f"launches (K1, K2, K3) {stereo}, max |cuda - cpu f64| = "
+          f"{err_s:.3g} of max|y|; resample_mono 44.1k->48.001k in "
+          f"{wall_m:.4f} s (span {dev_m:.3f} ms), launches {mono}, "
+          f"{err_m:.3g} of max|y|; new_engine_float32 over {len(cuts) - 1} "
+          f"random chunks of {xs.size} samples equal bit for bit to "
+          f"EngineCore at block 2048: {same} on {card}")
+    require(stereo == (1, 0, 0) and mono == (0, 0, 1),
+            f"convenience launches {stereo}, {mono}")
+    require(err_s <= ENGINE_TOL and err_m <= ENGINE_TOL,
+            f"convenience vs float64: {err_s}, {err_m}")
+    require(same, "new_engine_float32 differs from EngineCore")
+    return stereo[0], mono[2]
+
+
+def fft_oneshot_phase(gen, card: str) -> None:
+    """FFT-1: ``fft_oneshot`` (cuFFT) against ``oneshot`` (K1), 64 x 2 s,
+    at decimate 96k -> 48k VERY_HIGH and dft_up 48k -> 96k HIGH, with the
+    device time of each route's kernels (``torch.profiler``)."""
+    import torch
+    from go_audio_resampler_tpu_torch import Quality, oneshot, plan_engine
+    from go_audio_resampler_tpu_torch.engine import fftstage
+
+    for name, plan, rate in (
+            ("decimate 96k->48k VERY_HIGH",
+             plan_engine(COMP_IN, DECIM_IN, Quality.VERY_HIGH), COMP_IN),
+            ("dft_up 48k->96k HIGH",
+             plan_engine(DECIM_IN, COMP_IN, Quality.HIGH), DECIM_IN)):
+        require(plan.kind != "decimate" or plan.decim_taps == 1069,
+                f"FFT-1: {plan.decim_taps} taps")
+        x = 0.5 * torch.randn((ONESHOT_STREAMS, ONESHOT_SECONDS * rate),
+                              generator=gen, device="cuda")
+        reset_launches()
+        y_fft, wall, dev = timed(lambda: fftstage.fft_oneshot(plan, x))
+        fft_counts = launch_counts()
+        y_k1 = oneshot(plan, x)
+        err = rel(y_fft.cpu().numpy(), y_k1.cpu().double().numpy())
+        rows = {}
+        for route, fn in (("cuFFT", lambda: fftstage.fft_oneshot(plan, x)),
+                          ("K1", lambda: oneshot(plan, x))):
+            for traces in range(1, 4):
+                ks = device_kernels(fn, 3)
+                if ks:
+                    break
+            require(ks, f"FFT-1 {name}: no {route} kernel traced")
+            rows[route] = ks
+        taps = plan.decim_taps if plan.kind == "decimate" else (
+            plan.pre_taps * plan.factor)
+        n_fft = fftstage._fft_len(taps)
+        print(f"  FFT-1 {name} ({taps} taps, N = {n_fft}): fft_oneshot "
+              f"[{x.shape[0]}, {x.shape[1]}] -> {tuple(y_fft.shape)} in "
+              f"{wall:.4f} s (span {dev:.3f} ms, spectrum included), "
+              f"launches (K1, K2, K3) {fft_counts}; max |cuFFT - K1| = "
+              f"{err:.3g} of max|y|; device time per call: cuFFT route "
+              f"{sum(r[1] for r in rows['cuFFT']):.5f} ms, K1 route "
+              f"{sum(r[1] for r in rows['K1']):.5f} ms on {card}")
+        for route, ks in rows.items():
+            for kname, ms, count in ks[:6]:
+                print(f"    {route}: {ms:.5f} ms, {count:g} per call: "
+                      f"{kname[:90]}")
+        require(fft_counts == (0, 0, 0), f"FFT-1: launches {fft_counts}")
+        require(y_fft.shape == y_k1.shape and err <= FFT_TOL,
+                f"FFT-1 {name}: {tuple(y_fft.shape)}, {err}")
+
+
+def fft_prefilter_path(gen, card: str) -> int:
+    """FFT-2: ``EngineCore`` of 44.1k -> 3001 VERY_HIGH with the 7,841-tap
+    prefilter (FFT overlap-save), 256 streams x 10 s through
+    ``process()``; returns K1's launches (the walk's prestage)."""
+    import torch
+    from go_audio_resampler_tpu_torch import EngineCore, Quality, plan_engine
+    from go_audio_resampler_tpu_torch.engine import streaming
+
+    plan = plan_engine(RATE_IN, 3001, Quality.VERY_HIGH,
+                       strict_antialias=True)
+    eng = EngineCore(plan, batch=API_CHANNELS, block=2048)
+    spec = eng._aa_spec
+    require(plan.aa_taps == 7841 and spec is not None
+            and eng._aa_band is None and spec.n == 32768,
+            f"FFT-2: aa {plan.aa_taps}, spectrum {spec and spec.n}")
+    blk = eng.block
+    carry = torch.zeros((API_CHANNELS, plan.aa_taps - 1), device="cuda")
+    xb = torch.randn((API_CHANNELS, blk), generator=gen, device="cuda")
+    step_ms = cuda_ms(lambda: streaming._fir_fft_step(spec, carry, xb), 20)
+    ks = device_kernels(lambda: streaming._fir_fft_step(spec, carry, xb), 3)
+    del carry, xb
+    n = RATE_IN * SECONDS
+    x_np = (0.5 * torch.randn((API_CHANNELS, n), generator=gen,
+                              device="cuda")).cpu().numpy()
+    reset_launches()
+    (y, wall, n_chunks), _, dev = timed(lambda: host_run(
+        eng, x_np, np.random.default_rng(15), blk))
+    counts = launch_counts()
+    expected = walk_launches(plan, n, blk)
+    canonical = plan.lengths.canonical(n)
+    require(y.shape == (API_CHANNELS, canonical) and np.isfinite(y).all(),
+            f"FFT-2: output {y.shape}, canonical {canonical}")
+    require(counts == (expected, 0, 0),
+            f"FFT-2: launches {counts}, expected ({expected}, 0, 0)")
+    err = rel(y[:4], float64_run(plan, x_np[:4], 2048))
+    print(f"  FFT-2 44.1k->3001 VERY_HIGH strict: prefilter {plan.aa_taps} "
+          f"taps by overlap-save (N = {spec.n}, hop {spec.n - spec.taps + 1}"
+          f"), one step of [{API_CHANNELS}, {blk}] {step_ms:.5f} ms on CUDA "
+          f"events, kernels {sum(k[1] for k in ks):.5f} ms under the "
+          f"profiler ({', '.join(k[0][:40] for k in ks[:3])}); "
+          f"{API_CHANNELS} streams x {n} samples through process() in "
+          f"{n_chunks} random chunks in {wall:.4f} s = "
+          f"{API_CHANNELS * n / wall / 1e6:.1f} Msamples/s in (span "
+          f"{dev:.3f} ms), launches (K1, K2, K3) {counts} (the prestage, "
+          f"one a block: {expected}); length {y.shape[1]} == canonical "
+          f"{canonical}; max |cuda f32 - cpu f64| over 4 streams = "
+          f"{err:.3g} of max|y| on {card}")
+    require(err <= ENGINE_TOL, f"FFT-2 vs float64: {err}")
+    return counts[0]
+
+
+def fft_decim_path(gen, card: str) -> int:
+    """FFT-3: the FFT decimation step (``DECIM_FFT_MIN_TAPS`` lowered for
+    this sub-phase only), 96k -> 48k VERY_HIGH, 256 streams x 469 blocks
+    of 2048: ``process_device`` against ``process()`` at the same block
+    chunks (bit for bit), both against the K1 route;
+    ``TimeMajorEngine`` refuses it.  Returns K1's launches (the K1
+    route's)."""
+    import torch
+    from go_audio_resampler_tpu_torch import (EngineCore, Quality,
+                                              TimeMajorEngine, plan_engine)
+    from go_audio_resampler_tpu_torch.engine import streaming
+
+    plan = plan_engine(COMP_IN, DECIM_IN, Quality.VERY_HIGH)
+    blk = 2048
+    n = 469 * blk
+    x = 0.5 * torch.randn((API_CHANNELS, n), generator=gen, device="cuda")
+    chunks = [(a, a + blk) for a in range(0, n, blk)]
+    k1 = EngineCore(plan, batch=API_CHANNELS, block=blk)
+    require(k1._decim_fft is None, "FFT-3: K1 route took the FFT step")
+    kchunks = [(a, min(n, a + k1.block)) for a in range(0, n, k1.block)]
+    y_k1, k1_counts, k1_records = device_route(k1, x, kchunks)
+    saved = streaming.DECIM_FFT_MIN_TAPS
+    streaming.DECIM_FFT_MIN_TAPS = 0
+    try:
+        dev_eng = EngineCore(plan, batch=API_CHANNELS, block=blk)
+        host = EngineCore(plan, batch=API_CHANNELS, block=blk)
+        try:
+            TimeMajorEngine(plan, batch=API_CHANNELS, block=blk)
+            refused = ""
+        except NotImplementedError as err:
+            refused = str(err)
+    finally:
+        streaming.DECIM_FFT_MIN_TAPS = saved
+    require(dev_eng._decim_fft is not None and dev_eng.block == blk
+            and dev_eng.device_chunk_multiple == 2,
+            f"FFT-3: block {dev_eng.block}")
+    require("no banded matrix" in refused,
+            f"FFT-3: TimeMajorEngine did not refuse ({refused!r})")
+    y_dev, fft_counts, fft_records = device_route(dev_eng, x, chunks)
+    x_np = x.cpu().numpy()
+    del x
+    y_host, wall_h, dev_h = timed(lambda: np.concatenate(
+        [host.process(x_np[:, a:b]) for a, b in chunks] + [host.flush()],
+        axis=1))
+    y_dev = y_dev.cpu().numpy()
+    y_k1 = y_k1.cpu().double().numpy()
+    same = bool(np.array_equal(y_dev, y_host))
+    err_dev, err_host = rel(y_dev, y_k1), rel(y_host, y_k1)
+    rate = API_CHANNELS * n / 1e6
+    print(f"  FFT-3 96k->48k VERY_HIGH ({plan.decim_taps} taps), "
+          f"DECIM_FFT_MIN_TAPS lowered from {saved} to 0 for this sub-phase "
+          f"only (restored: {streaming.DECIM_FFT_MIN_TAPS}): "
+          f"process_device in {len(chunks)} blocks of {blk} + flush_device: "
+          f"{route_line(rate * 1e6, fft_records)}; launches (K1, K2, K3) "
+          f"{fft_counts}; process() in the same blocks {wall_h:.4f} s = "
+          f"{rate / wall_h:.1f} Msamples/s in (span {dev_h:.3f} ms); the K1 "
+          f"route in blocks of {k1.block}: "
+          f"{route_line(rate * 1e6, k1_records)}; launches {k1_counts} on "
+          f"{card}")
+    print(f"  FFT-3: process_device equal to process() bit for bit: {same}; "
+          f"against K1: {err_dev:.3g} and {err_host:.3g} of max|y|; "
+          f"TimeMajorEngine refused: {refused!r}")
+    require(fft_counts == (0, 0, 0) and k1_counts[1:] == (0, 0),
+            f"FFT-3: launches {fft_counts}, {k1_counts}")
+    require(same, "FFT-3: process_device and process() differ")
+    require(err_dev <= FFT_TOL and err_host <= FFT_TOL,
+            f"FFT-3 vs K1: {err_dev}, {err_host}")
+    return k1_counts[0]
+
+
+def api_fft_phase(gen, card: str) -> dict:
+    """Phase 12: API-A to API-D, the convenience helpers and FFT-1 to
+    FFT-3, each driven with the launch counts set to 0 just before it;
+    returns the K1 and K3 launches by sub-path and K1's API-C record."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"api_a": api_a(gen, card)}
+    torch.cuda.empty_cache()
+    out["api_b"] = api_b(gen, card)
+    torch.cuda.empty_cache()
+    out["k1_api_c"] = api_c(gen, card)
+    out["api_d"] = api_d(gen, card)
+    out["conv_k1"], out["conv_k3"] = convenience_phase(gen, card)
+    fft_oneshot_phase(gen, card)
+    out["fft_walk"] = fft_prefilter_path(gen, card)
+    torch.cuda.empty_cache()
+    out["fft_decim_k1"] = fft_decim_path(gen, card)
+    torch.cuda.empty_cache()
+    print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 # -- precision tiers -------------------------------------------------------
 
 
@@ -2546,6 +3203,15 @@ def main() -> int:
           f"prestage), {strict_walk['oneshot_k1']} (one-shot B and D); K2 "
           f"{head_free['launches']} (head-free composite); K3 "
           f"{strict_walk['oneshot_k3']} (one-shot D)")
+    print("public API and FFT routes:")
+    api = api_fft_phase(gen, card)
+    k1["shapes"]["api_48k_16k"] = api["k1_api_c"]
+    print(f"  launches by path: K1 {api['api_a']} (API-A), {api['api_b']} "
+          f"(API-B), {api['k1_api_c']['launches']} (API-C), "
+          f"{api['api_d'][0]} (API-D), {api['conv_k1']} (resample_stereo), "
+          f"{api['fft_walk']} (FFT-2, the prestage), {api['fft_decim_k1']} "
+          f"(FFT-3's K1 route); K3 {api['api_d'][2]} (API-D), "
+          f"{api['conv_k3']} (resample_mono); the FFT routes launch none")
     print("chunking:")
     chunking_phase(args.seed)
     if args.profile:

@@ -26,9 +26,10 @@ The strict-antialias prefilter (``aa_taps > 0``) of an exact-rational
 plan is composed into its banded operator (``pipeline/fused.compose``),
 whose left context ``lam`` the apply pads; a non-exact plan runs it
 first, as a 1:1 FIR through the banded convolution (K1), then the K3
-path.  Prefilters of ``FFT_CONV_MIN_TAPS`` taps or more, which the JAX
-package routes through FFT overlap-save, and the FFT-routed decimation
-are not ported yet and raise ``NotImplementedError``.
+path.  As in the JAX package, prefilters of ``FFT_CONV_MIN_TAPS`` taps or
+more and decimation filters of ``DECIM_FFT_MIN_TAPS`` taps or more run
+through FFT overlap-save (``engine/fftstage.py``, ``torch.fft``) instead,
+with the filter's spectrum prepared in the aux.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import torch
 from ..filterdesign.params import PHASE_FRAC_BITS
 from ..ops import banded, convolve, fused, general
 from ..ops.precision import check_tier, dispatch_allowed, dot_precision
+from . import fftstage
 from .counts import CubicSim
 from .plan import EnginePlan
 from .stages import prestage_apply
@@ -55,16 +57,11 @@ FFT_CONV_MIN_TAPS = 6144
 
 #: Crossover for routing the decimate topology through FFT overlap-save
 #: (taps >= this).  It lies above the 8191-tap design cap, so the banded
-#: matmul takes every plan.  A constant: the FFT route is not ported, so a
-#: lower crossover could only turn a working plan into an error.
+#: matmul (K1) takes every designable plan; tests lower it to reach the
+#: FFT route.  A constant, where the JAX package reads
+#: ``GAR_DECIM_FFT_MIN_TAPS``: a crossover measured on the JAX package's
+#: chip does not carry over to the card.
 DECIM_FFT_MIN_TAPS = 16384
-
-_FFT_AA = ("strict-antialias prefilters of FFT_CONV_MIN_TAPS taps or more "
-           "need the FFT overlap-save of engine/fftstage, not ported yet "
-           "(ROADMAP.md, queue 1 item 4, engine/fftstage.py)")
-_FFT_DECIM = ("FFT-routed decimation (decim_taps >= DECIM_FFT_MIN_TAPS) "
-              "needs engine/fftstage, not ported yet (ROADMAP.md, queue 1 "
-              "item 4, engine/fftstage.py)")
 
 
 def _poly_walk_host(plan: EnginePlan, count: int):
@@ -476,11 +473,15 @@ def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device,
     - rational: (R_t, Ipx, op, lam), the superframed per-period operator
       (the strict-antialias prefilter composed in, ``lam`` its context);
     - decimate: (R_t, Ipx, op, 0), the per-period matrix at the kernel's
-      period on the card and the plain version's on the CPU;
+      period on the card and the plain version's on the CPU; at
+      ``DECIM_FFT_MIN_TAPS`` taps or more (spectrum,), the filter's
+      ``fftstage.Spectrum``;
     - general with the strict-antialias prefilter: the general tuple
       followed by (h [1, taps], band), the prefilter's taps and, on the
       card, the banded convolution's operator for the padded input
-      (``convolve.band_operator``; None on the CPU);
+      (``convolve.band_operator``; None on the CPU); at
+      ``FFT_CONV_MIN_TAPS`` taps or more (spectrum, None), the
+      prefilter's ``fftstage.Spectrum``;
     - dft_up: (coeffs, band), the prestage's polyphase rows and, on the
       card, the banded lowering's operator for the padded input
       (``convolve.band_operator``; None on the CPU); none at factor 1;
@@ -507,7 +508,7 @@ def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device,
                                               tier)
     if plan.kind == 'decimate':
         if plan.decim_taps >= DECIM_FFT_MIN_TAPS:
-            raise NotImplementedError(_FFT_DECIM)
+            return (fftstage.spectrum(plan.decim_coeffs, dtype, device),)
         period = (PALLAS_DECIM_PERIOD if device.type == 'cuda'
                   else DECIM_PERIOD)
         r, _, ipx = _decim_matrix(plan, period)
@@ -517,11 +518,12 @@ def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device,
         r, _, ipx, lam = _fused_rational_matrix(plan)
         r, ipx = superframe(r, ipx)
         return _banded_aux(r, ipx, dtype, device, tier, lam)
-    if plan.aa_taps >= FFT_CONV_MIN_TAPS:
-        raise NotImplementedError(_FFT_AA)
     aux = _upload(_general_matrices(plan, canonical), dtype, device)
     if not plan.aa_taps:
         return aux
+    if plan.aa_taps >= FFT_CONV_MIN_TAPS:
+        return aux + (fftstage.spectrum(plan.aa_coeffs, dtype, device),
+                      None)
     h = torch.as_tensor(plan.aa_coeffs, dtype=dtype, device=device)[None, :]
     if device.type != 'cuda':
         return aux + (h, None)
@@ -562,8 +564,10 @@ def _oneshot_apply(plan: EnginePlan, x: torch.Tensor, aux,
     if plan.kind == 'decimate':
         # windows at j*M over (x 0^z ...): the canonical grid
         need = (canonical - 1) * plan.factor + plan.decim_taps
-        return _banded_apply(_pad(x, 0, max(z, need - n)), canonical, aux,
-                             tier)
+        xs = _pad(x, 0, max(z, need - n))
+        if isinstance(aux[0], fftstage.Spectrum):
+            return fftstage._fft_decimate(plan, xs, canonical, aux[0])
+        return _banded_apply(xs, canonical, aux, tier)
 
     # two_stage
     if plan.is_rational_exact:
@@ -572,15 +576,44 @@ def _oneshot_apply(plan: EnginePlan, x: torch.Tensor, aux,
         # The strict-antialias prefilter: a delay-compensated 'same'
         # lowpass at the input rate, extended over the flush padding:
         # filter (x ++ 0^z), then continue with no further right padding.
+        # Prototypes of FFT_CONV_MIN_TAPS taps or more: FFT overlap-save.
         d = (plan.aa_taps - 1) // 2
         h, band = aux[4:]
-        x = convolve.conv1d_poly(_pad(x, d, d + z), h, stride=1,
-                                 precision=tier, band=band)[:, 0, :]
+        xext = _pad(x, d, d + z)
+        if isinstance(h, fftstage.Spectrum):
+            x = fftstage.fft_correlate(xext, h, n + z)
+        else:
+            x = convolve.conv1d_poly(xext, h, stride=1, precision=tier,
+                                     band=band)[:, 0, :]
         z = 0
     # The prestage is composed into the banded tile matrices (x domain);
     # the device never materializes the 2x intermediate stream.
     xext = _pad(x, plan.pre_taps - 1, z)
     return _poly_apply_general(plan, xext, canonical, aux, tier)
+
+
+def _entry_tensor(x, dtype, device, name: str) -> torch.Tensor:
+    """A one-shot entry point's input ``x`` [S, n] as a tensor on
+    ``device`` in the compute dtype: float32 on the card, ``dtype`` (by
+    default the input's) on the CPU.  Raises without a GPU for a CUDA
+    device, for float64 on the card, and for another rank."""
+    from .streaming import _torch_dtype
+
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(f"{name}: CUDA is not available; pass "
+                           "device='cpu' to run on the CPU")
+    if len(np.shape(x)) != 2:
+        raise ValueError(
+            f"{name} expects [streams, samples], got {tuple(np.shape(x))}")
+    if dtype is None:
+        dtype = torch.float32 if device.type == 'cuda' else (
+            x.dtype if isinstance(x, torch.Tensor) else np.asarray(x).dtype)
+    dtype = _torch_dtype(dtype)
+    if device.type == 'cuda' and dtype != torch.float32:
+        raise ValueError(f"{name}: the CUDA kernels take float32; float64 "
+                         "runs on device='cpu'")
+    return torch.as_tensor(x).to(device=device, dtype=dtype)
 
 
 def oneshot(plan: EnginePlan, x, dtype=None, device='cuda') -> torch.Tensor:
@@ -595,23 +628,7 @@ def oneshot(plan: EnginePlan, x, dtype=None, device='cuda') -> torch.Tensor:
     products run at the process-wide tier ``GAR_TPU_MATMUL_PRECISION``
     (default 'highest'), read once per call; float64 is exact.
     """
-    from .streaming import _torch_dtype
-
-    device = torch.device(device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError("oneshot: CUDA is not available; pass "
-                           "device='cpu' to run on the CPU")
-    if len(np.shape(x)) != 2:
-        raise ValueError(
-            f"oneshot expects [streams, samples], got {tuple(np.shape(x))}")
-    if dtype is None:
-        dtype = torch.float32 if device.type == 'cuda' else (
-            x.dtype if isinstance(x, torch.Tensor) else np.asarray(x).dtype)
-    dtype = _torch_dtype(dtype)
-    if device.type == 'cuda' and dtype != torch.float32:
-        raise ValueError("oneshot: the CUDA kernels take float32; float64 "
-                         "runs on device='cpu'")
-    x = torch.as_tensor(x).to(device=device, dtype=dtype)
+    x = _entry_tensor(x, dtype, device, "oneshot")
     tier = dot_precision(None)
-    aux = _oneshot_aux(plan, int(x.shape[1]), dtype, device, tier)
+    aux = _oneshot_aux(plan, int(x.shape[1]), x.dtype, x.device, tier)
     return _oneshot_apply(plan, x, aux, tier)

@@ -20,6 +20,13 @@ topologies, each with its step:
 - integer upsampling (``dft_up``, e.g. 48k -> 96k): the prestage alone
   (K1), with static counts; a factor of 1 passes the input through.
 
+As in the JAX package, a decimation filter of ``DECIM_FFT_MIN_TAPS`` taps
+or more streams through FFT overlap-save (:func:`_fft_decim_step`; static
+counts, one output per ``factor`` inputs), and a prefilter of
+``FFT_CONV_MIN_TAPS`` taps or more through :func:`_fir_fft_step`, both on
+``torch.fft`` (``engine/fftstage.py``) with the filter's spectrum computed
+when the engine is built.
+
 Each step is one plain function ``(state, block) -> (state', y, n)``; the
 host wrapper feeds whole blocks from an input FIFO, so arbitrary chunk
 sizes stream through it.  Each output sample is one fixed-order dot
@@ -49,10 +56,9 @@ from ..ops import banded, convolve, fused
 from ..ops.precision import (DISPATCH_MODES, PRECISION_MODES, dispatch_for,
                              dot_precision)
 from ..pipeline.buffer import SampleFIFO
-from . import stages
-from .oneshot import (DECIM_FFT_MIN_TAPS, FFT_CONV_MIN_TAPS, _FFT_AA,
-                      _FFT_DECIM, _decim_matrix, _fused_rational_matrix,
-                      superframe)
+from . import fftstage, stages
+from .oneshot import (DECIM_FFT_MIN_TAPS, FFT_CONV_MIN_TAPS, _decim_matrix,
+                      _fused_rational_matrix, superframe)
 from .plan import EnginePlan
 from .stages import CubicState, PolyState, PrestageState
 
@@ -145,6 +151,36 @@ def _fused_banded_step(r_t, carry, x, ipx, wx, p2, op=None,
     return data[:, b:].contiguous(), y, n_frames * p2
 
 
+def _fir_fft_step(spec: fftstage.Spectrum, carry: torch.Tensor,
+                  x: torch.Tensor):
+    """Causal streaming FIR via FFT overlap-save (long prototypes).
+
+    The contract of ``stages.fir_process``: output i is
+    sum_t h[t] * (carry ++ x)[i + t]; returns (carry', y).  ``spec`` is
+    the filter's spectrum on the engine's device; used when the prefilter
+    has ``FFT_CONV_MIN_TAPS`` taps or more.
+    """
+    xext = torch.cat([carry.to(x.dtype), x], dim=1)
+    y = fftstage.fft_correlate(xext, spec, x.shape[1])
+    return xext[:, x.shape[1]:].contiguous(), y
+
+
+def _fft_decim_step(spec: fftstage.Spectrum, factor: int, carry, x):
+    """Streaming decimation via FFT overlap-save (long prototypes).
+
+    The carry discipline and canonical grid of the banded decimation step
+    (window j reads (0^C ++ stream)[j*M : j*M+T], the zeros being the
+    zero-initialized carry), with the correlation through
+    ``fftstage.fft_correlate``.  Output counts stay static: B/M samples
+    a block of B (a multiple of M).  Returns ``(carry', y, n_valid)``.
+    """
+    b = x.shape[1]
+    n_frames = b // factor
+    data = torch.cat([carry.to(x.dtype), x], dim=1)
+    f = fftstage.fft_correlate(data, spec, (n_frames - 1) * factor + 1)
+    return data[:, b:].contiguous(), f[:, ::factor][:, :n_frames], n_frames
+
+
 def pipelined_stream(eng, chunks, out: str, granule: int):
     """Pipelined-stream protocol behind :meth:`EngineCore.stream`.
 
@@ -207,7 +243,8 @@ class EngineCore:
     prestage, then the polyphase emit; a strict-antialias prefilter
     first, K1), cubic (QUICK plans; no kernel) and integer upsampling
     (``dft_up``; K1).  Prefilters of ``FFT_CONV_MIN_TAPS`` taps or more
-    and FFT-routed decimation raise ``NotImplementedError``.
+    and decimation filters of ``DECIM_FFT_MIN_TAPS`` taps or more run
+    through FFT overlap-save (``torch.fft``).
 
     Parameters:
       plan:   built engine plan (filters + topology), or a
@@ -269,6 +306,7 @@ class EngineCore:
     def _build_constants(self):
         p = self.plan
         self._band = None
+        self._decim_fft = None
         self._drop_override = None
         self._head_t = None
         # Exact-rational plans fold the strict-antialias prefilter into the
@@ -288,9 +326,18 @@ class EngineCore:
                 self.pre_coeffs = self._tensor(p.pre_coeffs)
                 self._pre_band(self.block)
             return
+        if p.kind == 'decimate' and p.decim_taps >= DECIM_FFT_MIN_TAPS:
+            # Long prototype: stream through _fft_decim_step, one output
+            # per factor inputs, the block a multiple of the factor; the
+            # carry and its ramp as the banded step's (below).
+            self._decim_fft = fftstage.spectrum(p.decim_coeffs, self.dtype,
+                                                self.device)
+            self.block = _ceil_div(self.block, p.factor) * p.factor
+            self._decim_carry = (_ceil_div(p.decim_taps - 1, p.factor)
+                                 * p.factor)
+            self._drop_override = self._decim_carry // p.factor
+            return
         if p.kind == 'decimate':
-            if p.decim_taps >= DECIM_FFT_MIN_TAPS:
-                raise NotImplementedError(f"EngineCore: {_FFT_DECIM}")
             r, _, ipx = _decim_matrix(p)
         elif p.kind == 'two_stage':
             # Fused streaming: the whole cascade (and the strict-antialias
@@ -338,8 +385,6 @@ class EngineCore:
         """The general two-stage walk's constants (the JAX engine's
         ``poly_cap``, ``poly_keep`` and ``hist_size``)."""
         p = self.plan
-        if p.aa_taps >= FFT_CONV_MIN_TAPS:
-            raise NotImplementedError(f"EngineCore: {_FFT_AA}")
         self.pre_coeffs = self._tensor(p.pre_coeffs)
         self.banks = tuple(self._tensor(b) for b in
                            (p.bank_a, p.bank_b, p.bank_c, p.bank_d))
@@ -366,14 +411,20 @@ class EngineCore:
         self._pre_bands = {}
         self._pre_band(self.block)
         if self._has_aa:
-            # The prefilter's FIR runs one block at a time (_aa_push): one
-            # K1 operator for T-1+block samples, prepared here.
+            # The prefilter's FIR runs one block at a time (_aa_push):
+            # at FFT_CONV_MIN_TAPS taps or more by overlap-save on its
+            # spectrum, else one K1 operator for T-1+block samples, each
+            # prepared here.
             self._aa_coeffs = self._tensor(p.aa_coeffs)
             self._aa_delay = (p.aa_taps - 1) // 2
+            self._aa_spec = (fftstage.spectrum(p.aa_coeffs, self.dtype,
+                                               self.device)
+                             if p.aa_taps >= FFT_CONV_MIN_TAPS else None)
             self._aa_band = (convolve.band_operator(
                 self._aa_coeffs[None, :], p.aa_taps - 1 + self.block, 1,
                 self.dtype, self.device, self._tier)
-                if self.device.type == 'cuda' else None)
+                if self.device.type == 'cuda' and self._aa_spec is None
+                else None)
 
     def _build_cubic(self):
         p = self.plan
@@ -404,6 +455,8 @@ class EngineCore:
         p, s, d, dev = self.plan, self.batch, self.dtype, self.device
         if self._band is not None:
             return torch.zeros((s, self._band.carry), dtype=d, device=dev)
+        if self._decim_fft is not None:
+            return torch.zeros((s, self._decim_carry), dtype=d, device=dev)
         if p.kind == 'cubic':
             return CubicState(carry=torch.zeros((s, 3), dtype=d, device=dev),
                               at_int=0, at_f1=0, at_f0=0)
@@ -424,6 +477,8 @@ class EngineCore:
             return _fused_banded_step(r_t, state, x, ipx=ipx, wx=wx, p2=p2,
                                       op=op, dispatch=self.dispatch,
                                       tier=self._tier)
+        if self._decim_fft is not None:
+            return _fft_decim_step(self._decim_fft, p.factor, state, x)
         if p.kind == 'dft_up':
             if p.factor == 1:
                 # unity ratio: pass-through (dft_stage.go:57-59)
@@ -499,9 +554,13 @@ class EngineCore:
         outs = []
         while self._aa_raw.available() >= self.block:
             blk = self._to_device(self._aa_raw.read(self.block))
-            self._aa_carry, y = stages.fir_process(
-                self._aa_coeffs, self._aa_carry, blk, self._tier,
-                band=self._aa_band)
+            if self._aa_spec is not None:
+                self._aa_carry, y = _fir_fft_step(self._aa_spec,
+                                                  self._aa_carry, blk)
+            else:
+                self._aa_carry, y = stages.fir_process(
+                    self._aa_coeffs, self._aa_carry, blk, self._tier,
+                    band=self._aa_band)
             outs.append(y.cpu().numpy())
         if not outs:
             return np.zeros((self.batch, 0), dtype=self.np_dtype)
@@ -544,7 +603,7 @@ class EngineCore:
         if take > 0:
             a = lam + self._head_have
             self._head_xe[:, a:a + take] = torch.as_tensor(
-                np.ascontiguousarray(x[:, :take]) if isinstance(
+                np.array(x[:, :take]) if isinstance(
                     x, np.ndarray) else x[:, :take]).to(self._head_xe)
             self._head_have += take
 
@@ -647,20 +706,24 @@ class EngineCore:
     def device_chunk_multiple(self) -> int | None:
         """Input-chunk granularity for :meth:`process_device`.
 
-        The fused operator's input period for the banded steps, 1 for the
-        DFT upsample; ``None`` when the topology has data-dependent output
+        The fused operator's input period for the banded steps, the factor
+        for the FFT-routed decimation, 1 for the DFT upsample; ``None`` when the topology has data-dependent output
         counts (cubic, the non-exact walk) and only :meth:`process` is
         available.
         """
         if self._band is not None:
             return self._band.ipx
+        if self._decim_fft is not None:
+            return self.plan.factor
         return 1 if self.plan.kind == 'dft_up' else None
 
     def _device_params(self) -> tuple[int, int]:
         """(input period, outputs per period) for the static-count step."""
-        if self._band is None:
-            return 1, self.plan.factor
-        return self._band.ipx, self._band.p2
+        if self._band is not None:
+            return self._band.ipx, self._band.p2
+        if self._decim_fft is not None:
+            return self.plan.factor, 1
+        return 1, self.plan.factor
 
     def _emit_device(self, core_out: torch.Tensor, n_out: int,
                      limit: int | None) -> torch.Tensor:
@@ -829,6 +892,8 @@ class EngineCore:
         p = self.plan
         if self._band is not None:
             hold = self._band.carry + self._band.wx
+        elif self._decim_fft is not None:
+            hold = self._decim_carry + p.decim_taps
         elif p.kind == 'cubic':
             hold = 4
         elif p.kind == 'dft_up':

@@ -64,8 +64,8 @@ class TimeMajorEngine:
     integer decimation and head-free banded composites
     (``pipeline.fused.BandedPlan``).  ``dft_up``, cubic and the non-exact
     walk are not fused banded steps and raise, as do composites with a
-    head (``EngineCore`` runs them) and the FFT-routed decimation, which
-    is not ported yet.  ``device`` is 'cuda' by default (K2);
+    head (``EngineCore`` runs them) and the FFT-routed decimation (no
+    banded matrix; ``EngineCore`` runs it).  ``device`` is 'cuda' by default (K2);
     ``device='cpu'`` runs K2's plain version.
     ``dispatch`` and ``precision`` are ``EngineCore``'s: the same gate and
     the same tier, so the output equals ``EngineCore``'s.
@@ -85,10 +85,14 @@ class TimeMajorEngine:
                 "head are not supported; use EngineCore.process_device")
         # Borrow EngineCore's constants (the operator, carry, ipx, wx and
         # p2 of every fused banded step, composites included); it raises
-        # for what the port does not run (FFT-routed decimation, knobs).
+        # for the knobs the port does not run.
         eng = EngineCore(plan, batch=batch, block=block, dtype=dtype,
                          dispatch=dispatch, precision=precision,
                          device=device)
+        if eng._decim_fft is not None:
+            raise NotImplementedError(
+                "TimeMajorEngine: FFT-routed decimation has no banded "
+                "matrix; use EngineCore")
         self.plan = plan
         self.batch = batch
         self.dtype = _torch_dtype(dtype)

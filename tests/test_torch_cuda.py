@@ -941,3 +941,88 @@ def test_strict_oneshot_matches_cpu_float64(cuda, monkeypatch, rates_q):
         (1, 0) if plan.is_rational_exact else (1, 1))
     assert got.shape == want.shape
     assert np.abs(got.cpu().numpy() - want).max() <= TOL
+
+
+# -- the public API and the FFT routes -------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rates", [(44100, 48000), (96000, 44100),
+                                   (48000, 16000)])
+def test_api_device_mode_matches_cpu_float64(cuda, rates):
+    """``Resampler.process_multi_device`` on the card (float32 by
+    default) within 2e-5 of max|y| of the float64 CPU run, equal bit for
+    bit to ``process_multi`` on the card."""
+    import go_audio_resampler_tpu_torch as gar
+    r = gar.new_resampler(gar.Config(*rates, channels=2))
+    assert r.dtype == np.float32 and r.device.type == "cuda"
+    mult = r.device_chunk_multiple
+    x = np.random.default_rng(44).normal(size=(2, 6 * mult)) * 0.5
+    y = torch.cat([r.process_multi_device(x), r.flush_multi_device()],
+                  dim=1)
+    assert y.device.type == "cuda" and y.dtype == torch.float32
+    r.reset()
+    host = np.concatenate([np.stack(r.process_multi(list(x))),
+                           np.stack(r.flush_multi())], axis=1)
+    assert np.array_equal(y.cpu().numpy(), host)
+    ref = gar.new_resampler(gar.Config(*rates, channels=2, device="cpu"))
+    want = np.concatenate([np.stack(ref.process_multi(list(x))),
+                           np.stack(ref.flush_multi())], axis=1)
+    assert want.shape == host.shape
+    assert np.abs(host - want).max() <= TOL * np.abs(want).max()
+
+
+@pytest.mark.cuda
+def test_convenience_on_the_card(cuda):
+    """The one-shot helpers compute in float32 on the card (K1 or K3) and
+    return float64, within 2e-5 of max|y| of the float64 CPU run."""
+    import go_audio_resampler_tpu_torch as gar
+    x = np.random.default_rng(45).normal(size=4000) * 0.5
+    for out in (48000, 48001):
+        before = (fused.launches, general.launches)
+        got = gar.resample_mono(x, 44100, out)
+        assert got.dtype == np.float64
+        assert (fused.launches - before[0], general.launches - before[1]) \
+            == ((1, 0) if out == 48000 else (0, 1))
+        want = gar.resample_mono(x, 44100, out, device="cpu")
+        assert np.abs(got - want).max() <= TOL * np.abs(want).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rates_q", [(96000, 48000, Quality.VERY_HIGH),
+                                     (48000, 96000, Quality.HIGH)])
+def test_fft_oneshot_matches_k1(cuda, rates_q):
+    """``fft_oneshot`` (cuFFT) within 1e-5 of max|y| of ``oneshot`` (K1)."""
+    from go_audio_resampler_tpu_torch.engine import fftstage
+    plan = plan_engine(*rates_q)
+    x = _data(4, 20000, cuda, 46)
+    want = run_oneshot(plan, x)
+    got = fftstage.fft_oneshot(plan, x)
+    assert got.shape == want.shape and got.device.type == "cuda"
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_fft_decimation_device_mode_equals_host(cuda, monkeypatch):
+    """The FFT decimation step on the card: ``process_device`` equals
+    ``process()`` bit for bit at the same block chunking, and both lie
+    within 1e-5 of max|y| of the K1 route."""
+    streaming = importlib.import_module(
+        "go_audio_resampler_tpu_torch.engine.streaming")
+    plan = plan_engine(96000, 48000, Quality.VERY_HIGH)
+    k1 = EngineCore(plan, batch=4, block=2048)
+    monkeypatch.setattr(streaming, "DECIM_FFT_MIN_TAPS", 0)
+    dev, host = (EngineCore(plan, batch=4, block=2048) for _ in range(2))
+    assert dev._decim_fft is not None and k1._decim_fft is None
+    x = np.random.default_rng(47).normal(size=(4, 20 * dev.block)).astype(
+        np.float32)
+    blk = dev.block
+    y_dev = torch.cat([dev.process_device(x[:, a:a + blk])
+                       for a in range(0, x.shape[1], blk)]
+                      + [dev.flush_device()], dim=1).cpu().numpy()
+    y_host = np.concatenate([host.process(x[:, a:a + blk])
+                             for a in range(0, x.shape[1], blk)]
+                            + [host.flush()], axis=1)
+    assert np.array_equal(y_dev, y_host)
+    y_k1 = np.concatenate([k1.process(x), k1.flush()], axis=1)
+    assert y_k1.shape == y_host.shape
+    assert np.abs(y_host - y_k1).max() <= 1e-5 * np.abs(y_k1).max()

@@ -121,22 +121,45 @@ def test_default_device_without_cuda_raises():
     ((48000, 44101), {"strict_antialias": True}),   # general + aa
 ])
 def test_strict_antialias_raises(rates, kw, monkeypatch):
-    """A non-exact plan's prefilter of FFT_CONV_MIN_TAPS taps or more
-    (the JAX package's FFT route) is not ported: the one-shot raises with
-    its queue item; shorter ones run (tests/test_torch_strict_aa.py)."""
-    tp = plan_engine(*rates, Quality.HIGH, **kw)
+    """A non-exact plan's prefilter of FFT_CONV_MIN_TAPS taps or more runs
+    through FFT overlap-save, as in the JAX package: with both packages'
+    crossover lowered to this plan's taps, the one-shots agree to 1e-11
+    (the FFT routes' float64 tolerance, tests/test_fftstage.py)."""
+    jp, tp = _plans(rates + (3, kw))
     assert tp.aa_taps > 0 and tp.kind == "two_stage"
     assert not tp.is_rational_exact
     monkeypatch.setattr(toneshot, "FFT_CONV_MIN_TAPS", tp.aa_taps)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        gart.oneshot(tp, np.zeros((1, 1000)), device="cpu")
+    monkeypatch.setattr(joneshot, "FFT_CONV_MIN_TAPS", tp.aa_taps)
+    joneshot._oneshot_jit.clear_cache()
+    try:
+        x = np.random.default_rng(21).normal(size=(2, 1000))
+        aux = toneshot._oneshot_aux(tp, 1000, torch.float64, "cpu",
+                                    "highest")
+        assert type(aux[4]).__name__ == "Spectrum"
+        got = gart.oneshot(tp, x, device="cpu").numpy()
+        want = np.asarray(joneshot.oneshot(jp, x, dtype=np.float64))
+    finally:
+        joneshot._oneshot_jit.clear_cache()
+    assert got.shape == want.shape == (2, tp.lengths.canonical(1000))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-11)
 
 
 def test_fft_decimation_raises(monkeypatch):
+    """Decimation at DECIM_FFT_MIN_TAPS taps or more runs through FFT
+    overlap-save: with both crossovers lowered, 48k -> 16k HIGH agrees
+    with the JAX package's FFT route to 1e-11."""
+    jp, tp = _plans((48000, 16000, 3, {}))
     monkeypatch.setattr(toneshot, "DECIM_FFT_MIN_TAPS", 1)
-    with pytest.raises(NotImplementedError, match="fftstage"):
-        gart.oneshot(plan_engine(48000, 16000, Quality.HIGH),
-                     np.zeros((1, 1000)), device="cpu")
+    monkeypatch.setattr(joneshot, "DECIM_FFT_MIN_TAPS", 1)
+    joneshot._oneshot_jit.clear_cache()
+    try:
+        x = np.random.default_rng(22).normal(size=(2, 1000))
+        got = gart.oneshot(tp, x, device="cpu").numpy()
+        want = np.asarray(joneshot.oneshot(jp, x, dtype=np.float64))
+    finally:
+        joneshot._oneshot_jit.clear_cache()
+    assert got.shape == want.shape == (2, tp.lengths.canonical(1000))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-11)
 
 
 @pytest.mark.parametrize("name,wrapper", [

@@ -229,7 +229,10 @@ def test_apply_matches(chain, n):
 
 
 def test_package_exports():
-    assert set(pipeline.__all__) == {
+    """``pipeline`` exports what the JAX package's does (the planner and
+    the FIFO) and the fusion layer."""
+    from go_audio_resampler_tpu import pipeline as jpipeline
+    assert set(pipeline.__all__) == set(jpipeline.__all__) | {
         "SampleFIFO", "MAX_FUSED_WIDTH", "BandedOp", "BandedLengthModel",
         "BandedPlan", "banded_from_plan", "banded_op_from_arrays",
         "compose", "fuse_chain"}

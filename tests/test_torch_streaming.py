@@ -273,9 +273,20 @@ def test_decimation_geometry_48k_16k():
 
 
 def test_fft_decimation_raises(monkeypatch):
+    """Decimation at DECIM_FFT_MIN_TAPS taps or more streams through FFT
+    overlap-save: with both crossovers lowered, the port's engine agrees
+    with the JAX engine's FFT route to 1e-11 (the FFT routes' float64
+    tolerance), with equal lengths."""
     monkeypatch.setattr(streaming, "DECIM_FFT_MIN_TAPS", 1)
-    with pytest.raises(NotImplementedError, match="fftstage"):
-        EngineCore(plan_engine(48000, 16000, Quality.HIGH), device="cpu")
+    monkeypatch.setattr(importlib.import_module(
+        "go_audio_resampler_tpu.engine.oneshot"), "DECIM_FFT_MIN_TAPS", 1)
+    je, te = _engines(DECIM_PLANS[0], np.float64)
+    assert je._decim_fft and te._decim_fft is not None
+    x = np.random.default_rng(13).normal(size=(BATCH, 6000))
+    yj = np.concatenate([je.process(x), je.flush()], axis=1)
+    yt = np.concatenate([te.process(x), te.flush()], axis=1)
+    assert yt.shape == yj.shape == (BATCH, te.plan.lengths.canonical(6000))
+    np.testing.assert_allclose(yt, yj, rtol=0, atol=1e-11)
 
 
 def test_process_steps_through_the_fused_wrapper(monkeypatch):
@@ -308,6 +319,10 @@ def test_port_imports_no_jax():
             "import go_audio_resampler_tpu_torch.engine.tmajor\n"
             "import go_audio_resampler_tpu_torch.engine.oneshot\n"
             "import go_audio_resampler_tpu_torch.pipeline.fused\n"
+            "import go_audio_resampler_tpu_torch.pipeline.planner\n"
+            "import go_audio_resampler_tpu_torch.engine.fftstage\n"
+            "import go_audio_resampler_tpu_torch.api\n"
+            "import go_audio_resampler_tpu_torch.convenience\n"
             "import go_audio_resampler_tpu_torch.utils\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == "
@@ -334,9 +349,9 @@ def test_ops_do_not_import_the_engine():
 
 def test_jax_package_settings_do_not_reach_the_port():
     """The JAX package reads its FFT-decimation crossover and its matrix
-    cache size from the environment; the port has no FFT route and keeps
-    both fixed, so a crossover set for the JAX package cannot break the
-    port's decimation."""
+    cache size from the environment; the port keeps both fixed, so a
+    crossover set for the JAX package does not move the port's
+    decimation off K1."""
     code = ("import importlib, go_audio_resampler_tpu_torch as g\n"
             "o = importlib.import_module("
             "'go_audio_resampler_tpu_torch.engine.oneshot')\n"
@@ -355,9 +370,10 @@ def test_jax_package_settings_do_not_reach_the_port():
 
 
 def test_package_exports():
-    assert set(gart.__all__) == {"plan_engine", "EngineCore",
-                                 "TimeMajorEngine", "oneshot", "Quality"}
-    assert gart.Quality is Quality
+    assert {"plan_engine", "EngineCore", "TimeMajorEngine", "oneshot",
+            "Quality", "Config", "new_resampler", "resample_mono",
+            "new_engine_float32"} <= set(gart.__all__)
+    assert gart.Quality is Quality is gart.EngineQuality
     assert callable(gart.oneshot) and gart.oneshot.__module__ == (
         "go_audio_resampler_tpu_torch.engine.oneshot")
 
@@ -370,16 +386,29 @@ def test_default_device_without_cuda_raises():
 
 
 @pytest.mark.parametrize("rates,kw", [
-    ((48000, 44101, Quality.HIGH), {"strict_antialias": True}),  # the walk's
-    ((48000, 44099, Quality.HIGH), {"strict_antialias": True}),  # the walk's
+    ((48000, 44101, 3), {"strict_antialias": True}),  # the walk's
+    ((48000, 44099, 3), {"strict_antialias": True}),  # the walk's
 ])
 def test_unported_topologies_raise(rates, kw, monkeypatch):
-    """The walk's prefilter at FFT_CONV_MIN_TAPS taps or more (the JAX
-    package's FFT route) is not ported."""
-    plan = plan_engine(*rates, **kw)
-    monkeypatch.setattr(streaming, "FFT_CONV_MIN_TAPS", plan.aa_taps)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineCore(plan, device="cpu")
+    """The walk's prefilter at FFT_CONV_MIN_TAPS taps or more runs through
+    FFT overlap-save (``_fir_fft_step``): with both crossovers lowered to
+    this plan's taps, the port's walk agrees with the JAX walk to 1e-11."""
+    jp = jplan_engine(*rates[:2], JQuality(rates[2]), **kw)
+    tp = plan_from_arrays({f: getattr(jp, f)
+                           for f in jp.__dataclass_fields__})
+    monkeypatch.setattr(streaming, "FFT_CONV_MIN_TAPS", tp.aa_taps)
+    monkeypatch.setattr(importlib.import_module(
+        "go_audio_resampler_tpu.engine.oneshot"), "FFT_CONV_MIN_TAPS",
+        tp.aa_taps)
+    je = JEngine(jp, batch=BATCH, block=BLOCK, dtype=np.float64)
+    te = EngineCore(tp, batch=BATCH, block=BLOCK, dtype=np.float64,
+                    device="cpu")
+    assert te._aa_spec is not None
+    x = np.random.default_rng(14).normal(size=(BATCH, 4000))
+    yj = np.concatenate([je.process(x), je.flush()], axis=1)
+    yt = np.concatenate([te.process(x), te.flush()], axis=1)
+    assert yt.shape == yj.shape == (BATCH, tp.lengths.canonical(4000))
+    np.testing.assert_allclose(yt, yj, rtol=0, atol=1e-11)
 
 
 @pytest.mark.parametrize("kw,exc", [

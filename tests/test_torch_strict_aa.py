@@ -414,21 +414,35 @@ def test_oneshot_aux_prepares_the_prefilter(path, monkeypatch):
     assert y.shape == (2, tp.lengths.canonical(3000))
 
 
-# -- what stays unported ------------------------------------------------------
+# -- the FFT prefilter route ------------------------------------------------
 
 def test_fft_prefilter_raises(monkeypatch):
-    """A prefilter of FFT_CONV_MIN_TAPS taps or more (the JAX package's
-    FFT overlap-save route, queue 1 item 4) raises in the walk and the
-    one-shot; an exact plan composes any prefilter into its operator."""
+    """A prefilter of FFT_CONV_MIN_TAPS taps or more runs through FFT
+    overlap-save in the walk and the one-shot, as in the JAX package: with
+    both packages' crossover lowered to D's taps, both agree with the JAX
+    package's FFT route to 1e-11 (the FFT routes' float64 tolerance); an
+    exact plan (B) composes any prefilter into its operator."""
     assert toneshot.FFT_CONV_MIN_TAPS == joneshot.__globals__[
         "FFT_CONV_MIN_TAPS"] == 6144
-    _, tp = PATHS["D"]()
+    jp, tp = PATHS["D"]()
+    jmod = importlib.import_module("go_audio_resampler_tpu.engine.oneshot")
     monkeypatch.setattr(toneshot, "FFT_CONV_MIN_TAPS", tp.aa_taps)
     monkeypatch.setattr(streaming, "FFT_CONV_MIN_TAPS", tp.aa_taps)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        EngineCore(tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        oneshot(tp, np.zeros((1, 1000)), device="cpu")
+    monkeypatch.setattr(jmod, "FFT_CONV_MIN_TAPS", tp.aa_taps)
+    jmod._oneshot_jit.clear_cache()
+    x = np.random.default_rng(45).normal(size=(BATCH, 3000))
+    try:
+        je, te = _engines("D", np.float64)
+        assert te._aa_spec is not None
+        cuts = _splits(np.random.default_rng(46), 3000, 1000)
+        got, want = _host_run(te, x, cuts), _host_run(je, x, cuts)
+        got1 = oneshot(tp, x, device="cpu").numpy()
+        want1 = np.asarray(joneshot(jp, x, dtype=np.float64))
+    finally:
+        jmod._oneshot_jit.clear_cache()
+    for a, b in ((got, want), (got1, want1)):
+        assert a.shape == b.shape == (BATCH, tp.lengths.canonical(3000))
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-11)
     _, tb = PATHS["B"]()
-    EngineCore(tb, device="cpu")
+    assert EngineCore(tb, device="cpu")._band is not None
     assert oneshot(tb, np.zeros((1, 1000)), device="cpu").shape[1] > 0

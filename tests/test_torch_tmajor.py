@@ -239,10 +239,19 @@ def test_rejects_unsupported(rates, kw):
 
 
 def test_rejects_fft_decimation(monkeypatch):
+    """FFT-routed decimation has no banded matrix: both packages refuse
+    it with the same message."""
     monkeypatch.setattr(streaming, "DECIM_FFT_MIN_TAPS", 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.setattr(importlib.import_module(
+        "go_audio_resampler_tpu.engine.oneshot"), "DECIM_FFT_MIN_TAPS", 1)
+    with pytest.raises(NotImplementedError) as err:
         TimeMajorEngine(plan_engine(48000, 16000, Quality.HIGH), batch=2,
                         device="cpu")
+    with pytest.raises(NotImplementedError) as jerr:
+        JTimeMajor(jplan_engine(48000.0, 16000.0, JQuality.HIGH), batch=2,
+                   dtype=jnp.float32)
+    assert str(err.value) == str(jerr.value)
+    assert "FFT-routed decimation has no banded matrix" in str(err.value)
 
 
 def test_validation():
