@@ -136,10 +136,38 @@ is printed):
       blocks, both within 1e-5 of max|y| of the K1 route;
       ``TimeMajorEngine`` refuses it.
 
+13. Variable rate, checkpoints, the functional op and the shims:
+   VR. Drift correction: ``VariableRateResampler`` (max_ratio 2.0, io_ratio
+      48000/47990, slewed to 48000/48010 over 48000 outputs from block 117
+      on), 256 streams x 235 blocks of 2048 at 48 kHz (10.03 s), 'vr' and
+      'vr-hq', each through ``process()`` in two random chunkings and
+      through ``process_device``: the three equal bit for bit, 4 streams
+      within 2e-5 of max|y| of the float64 CPU run, K1 launches derived
+      from the block count (one a block for 'vr-hq', none for 'vr'), the
+      0.2 fs tone's residual cut by >= 20 dB by 'vr-hq'; each route's
+      Msamples/s in and ms a block, warm steps' host enqueue and kernels'
+      device time (``torch.profiler``); K1 at the prestage's shape.
+   Checkpoint. Saved mid-stream and restored into a fresh object, which
+      goes on bit for bit equal to the whole run: the main path's
+      ``EngineCore`` (1024 x 10 s), the 96k -> 44.1k composite inside its
+      head region (256 x 10 s), an API-A ``Resampler`` (256 x 10 s), and
+      the 'vr-hq' stream mid-slew; save and load ms.
+   Functional. ``functional.resample`` on 64 x 2 s: 48k -> 16k and 44.1k
+      -> 48k equal to ``oneshot`` bit for bit with one K1 launch, 44.1k ->
+      48.001k (the block loop) within 2e-5 of max|y| of phase 6's K3
+      output with one K1 launch a block; the adjoint identity to 1e-5 of
+      |y| |w|, no launch in the backward; forward and backward ms; five
+      Adam steps of a ``Conv1d`` front end reduce its loss; K1 at the
+      decimation operator's and the block loop's prestage shapes.
+   Shims. ``soxr_compat.resample`` (2 ch x 10 s, 44.1k -> 48k HQ, numpy)
+      and ``torch_compat.Resample`` (48k -> 44.1k, a [64, 96000] tensor on
+      the card) equal to ``oneshot`` bit for bit, one K1 launch each; K1
+      at both shapes.
+
 Each path is driven with every launch count set to 0 just before it and
 read just after; launches made to compare a kernel with its plain version
 are not counted.  The phases run in the order 1, 2, 8 (kernels and
-one-shot), 3, 4, 8 (engines and gate), 5, 6, 9, 10, 11, 12, 7.  The last three
+one-shot), 3, 4, 8 (engines and gate), 5, 6, 9, 10, 11, 12, 13, 7.  The last three
 lines are the card, the kernels as JSON, and ``{"ok": true, "device":
 {...}}``.  Every time printed is this card's, measured in this run.
 """
@@ -150,6 +178,7 @@ import argparse
 import contextlib
 import json
 import math
+import pathlib
 import re
 import subprocess
 import sys
@@ -1566,42 +1595,34 @@ def k1_engine_shape(label: str, eng, gen, streams: int) -> dict:
     """K1 at an engine's step (``streams`` x [carry ++ block] against the
     engine's prepared operator) and at a ragged shape, each against its
     plain version within 2e-5 of max|y|; then timed beside it, ``F.conv1d``
-    and ``matmul`` on the ``unfold`` view, with its bounds."""
+    and ``matmul`` on the ``unfold`` view, with its bounds (:func:`k1_at`)."""
     import torch
     import torch.nn.functional as F
     from go_audio_resampler_tpu_torch.ops import fused
 
     r_t, ipx, wx, p2, carry, op = eng._band
     nf = eng.block // ipx
-    errs = []
-    for s, frames, extra in ((streams, nf, carry + eng.block
-                              - ((nf - 1) * ipx + wx)), (5, 3, 7)):
-        x = torch.randn((s, (frames - 1) * ipx + wx + extra), generator=gen,
-                        device="cuda")
-        kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=frames, tier="highest")
-        y = fused.fused_resample(x, r_t, op=op, **kw)
-        ref = fused.fused_resample_reference(x, r_t, **kw)
-        torch.cuda.synchronize()
-        err = (y - ref).abs().max().item() / ref.abs().max().item()
-        print(f"  K1 {label}: data {tuple(x.shape)}, R_t {(wx, p2)}, {frames}"
-              f" frames, ipx {ipx}, split {op.split}: max |kernel - plain| "
-              f"= {err:.3g} of max|y|")
-        require(y.shape == (s, frames * p2) and err <= KERNEL_TOL,
-                f"K1 {label}: {tuple(y.shape)}, error {err}")
-        errs.append(err)
+    x = torch.randn((5, 2 * ipx + wx + 7), generator=gen, device="cuda")
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=3, tier="highest")
+    y = fused.fused_resample(x, r_t, op=op, **kw)
+    ref = fused.fused_resample_reference(x, r_t, **kw)
+    torch.cuda.synchronize()
+    err = (y - ref).abs().max().item() / ref.abs().max().item()
+    print(f"  K1 {label}: data {tuple(x.shape)}, R_t {(wx, p2)}, 3 frames, "
+          f"ipx {ipx}, split {op.split}: max |kernel - plain| = {err:.3g} "
+          "of max|y|")
+    require(y.shape == (5, 3 * p2) and err <= KERNEL_TOL,
+            f"K1 {label}: {tuple(y.shape)}, error {err}")
     x = torch.randn((streams, carry + eng.block), generator=gen,
                     device="cuda")
-    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=nf, tier="highest")
     weight = r_t.t().contiguous()[:, None, :]
     lib_in = x[:, None, :(nf - 1) * ipx + wx].contiguous()
     frames_v = x.unfold(1, wx, ipx)[:, :nf]
-    timed = time_banded(
-        f"K1 {label} shape", lambda: fused.fused_resample(x, r_t, op=op, **kw),
-        lambda: fused.fused_resample_reference(x, r_t, **kw),
+    record = k1_at(
+        label, x, r_t, ipx, p2, nf, op,
         {"library_conv1d_ms": lambda: F.conv1d(lib_in, weight, stride=ipx),
-         "library_matmul_ms": lambda: torch.matmul(frames_v, r_t)},
-        banded_cost(r_t, op, streams * nf, streams * ((nf - 1) * ipx + wx)))
-    return {**timed, "max_abs_err": max(errs)}
+         "library_matmul_ms": lambda: torch.matmul(frames_v, r_t)})
+    return {**record, "max_abs_err": max(err, record["max_abs_err"])}
 
 
 def device_run(eng, x, chunks, canonical: int) -> tuple:
@@ -3095,6 +3116,568 @@ def profile_phase(gen, steps: int = 40) -> None:
         del x
 
 
+# -- variable rate, checkpoints, functional and shims (phase 13) -------------
+
+#: VR (drift correction): 256 streams of 235 blocks of 2048 samples at 48
+#: kHz (10.03 s), the clock at 48000/47990, slewed to 48000/48010 over 48000
+#: outputs from block 117 on; max_ratio 2.0.  Stream 0 is a 0.2 fs tone:
+#: 'vr-hq' must cut its residual by 20 dB against 'vr' before the slew
+#: (tests/test_variable_rate.py:137-149).
+VR_IN, VR_STREAMS, VR_BLOCK, VR_BLOCKS, VR_MID = 48000, 256, 2048, 235, 117
+VR_MAX, VR_RATIO = 2.0, 48000 / 47990
+VR_SLEW_TO, VR_SLEW_LEN = 48000 / 48010, 48000
+VR_TONE, VR_HQ_GAIN_DB = 0.2, 20.0
+#: blocks a process_device call
+VR_CHUNK_BLOCKS = 8
+#: Functional (training ingest): 64 streams of 2 s; the adjoint identity
+#: is held to 1e-5 of |y| |w| (float32 products).
+FUNC_STREAMS, FUNC_SECONDS, ADJOINT_TOL = 64, 2, 1e-5
+
+
+def k1_at(label: str, x, r_t, ipx: int, p2: int, nf: int, op,
+          library: dict | None = None) -> dict:
+    """K1 at one shape (``x`` [S, n] against R_t [wx, p2], ``nf`` frames)
+    against its plain version within 2e-5 of max|y|, then timed beside
+    it and ``library`` (by default ``F.conv1d`` over R's columns at stride
+    ipx), with its bounds; the record for the kernels' line."""
+    import torch
+    import torch.nn.functional as F
+    from go_audio_resampler_tpu_torch.ops import fused
+
+    wx = r_t.shape[0]
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=nf, tier="highest")
+    y = fused.fused_resample(x, r_t, op=op, **kw)
+    ref = fused.fused_resample_reference(x, r_t, **kw)
+    torch.cuda.synchronize()
+    err = (y - ref).abs().max().item() / ref.abs().max().item()
+    print(f"  K1 {label}: data {tuple(x.shape)}, R_t {(wx, p2)}, {nf} "
+          f"frames, ipx {ipx}, split {op.split}: max |kernel - plain| = "
+          f"{err:.3g} of max|y|")
+    require(tuple(y.shape) == (x.shape[0], nf * p2) and err <= KERNEL_TOL,
+            f"K1 {label}: {tuple(y.shape)}, error {err}")
+    if library is None:
+        weight = r_t.t().contiguous()[:, None, :]
+        lib_in = x[:, None, :(nf - 1) * ipx + wx].contiguous()
+        library = {"library_conv1d_ms":
+                   lambda: F.conv1d(lib_in, weight, stride=ipx)}
+    timed = time_banded(
+        f"K1 {label} shape", lambda: fused.fused_resample(x, r_t, op=op, **kw),
+        lambda: fused.fused_resample_reference(x, r_t, **kw), library,
+        banded_cost(r_t, op, x.shape[0] * nf,
+                    x.shape[0] * ((nf - 1) * ipx + wx)))
+    return {**timed, "max_abs_err": err}
+
+
+def prestage_k1(label: str, band, coeffs, xext) -> dict:
+    """K1 at a 2x prestage's shape (the banded convolution of ``xext``
+    with the prepared ``band``), with ``F.conv1d`` of the phase rows
+    (stride 1, F = 2) as its library call."""
+    import torch.nn.functional as F
+    wx, p2 = band.r_t.shape
+    t1 = coeffs.shape[1]
+    nf = -(-(xext.shape[1] - t1 + 1) // band.p)
+    weight = coeffs[:, None, :].contiguous()
+    lib_in = xext[:, None, :]
+    return k1_at(label, xext, band.r_t, band.p, p2, nf, band.op,
+                 {"library_conv1d_ms": lambda: F.conv1d(lib_in, weight)})
+
+
+def vr_route(vr, route: str, x_np, x_dev, rng) -> dict:
+    """One run of the VR stream: ``route`` 'device' feeds
+    ``process_device`` VR_CHUNK_BLOCKS blocks a call, 'host' feeds
+    ``process()`` random chunks of 1 to 3 blocks' samples (``rng``); the
+    slew is set after block VR_MID; then the flush.  Returns the output
+    (host), the outputs before the slew, the wall time (s) and the host
+    time of the ``process_device`` calls (s)."""
+    import torch
+    blk, n = vr.block, x_np.shape[1]
+    outs, enqueue, before = [], 0.0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo, hi in ((0, VR_MID * blk), (VR_MID * blk, n)):
+        if lo:
+            before = vr.samples_out
+            vr.set_io_ratio(VR_SLEW_TO, slew_len=VR_SLEW_LEN)
+        a = lo
+        while a < hi:
+            if route == "device":
+                b = min(hi, a + VR_CHUNK_BLOCKS * blk)
+                t = time.perf_counter()
+                outs.append(vr.process_device(x_dev[:, a:b]))
+                enqueue += time.perf_counter() - t
+            else:
+                b = min(hi, a + int(rng.integers(1, 3 * blk + 1)))
+                outs.append(vr.process(x_np[:, a:b]))
+            a = b
+    if route == "device":
+        outs.append(vr.flush_device())
+        y = torch.cat(outs, dim=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        y = y.cpu().numpy()
+    else:
+        outs.append(vr.flush())
+        y = np.concatenate(outs, axis=1)
+        wall = time.perf_counter() - t0
+    return {"y": y, "before": before, "wall": wall, "enqueue": enqueue}
+
+
+def vr_launches(vr, n: int) -> int:
+    """K1 launches of a 'vr-hq' run of ``n`` samples (whole blocks), then
+    flushed: one a block, and the flush's zero blocks, which cover the
+    prestage delay plus the cubic lookahead (VariableRateResampler.flush);
+    none for 'vr'."""
+    if vr.factor == 1:
+        return 0
+    return n // vr.block + -(-(vr._delay_u + 3) // (vr.factor * vr.block))
+
+
+def tone_residual(y: np.ndarray, f: float) -> float:
+    """RMS residual of ``y`` after a least-squares fit of a tone of ``f``
+    cycles per sample, 500 samples trimmed at each end."""
+    y = y[500:-500]
+    t = np.arange(y.size) + 500.0
+    a = np.stack([np.cos(2 * np.pi * f * t), np.sin(2 * np.pi * f * t)], 1)
+    coef, *_ = np.linalg.lstsq(a, y, rcond=None)
+    return float(np.sqrt(np.mean((y - a @ coef) ** 2)))
+
+
+def vr_step_times(vr, x_dev, card: str, steps: int = 20) -> None:
+    """Warm steps of one resampler through ``process_device`` (the host
+    walk included): host enqueue, device span and kernels busy per block
+    (``torch.profiler``)."""
+    import torch
+    chunk = x_dev[:, :steps * vr.block]
+    vr.process_device(chunk)
+    _, wall, span = timed(lambda: vr.process_device(chunk))
+    t0 = time.perf_counter()
+    vr.process_device(chunk)
+    enqueue = (time.perf_counter() - t0) / steps * 1e3
+    torch.cuda.synchronize()
+    kernels = device_kernels(lambda: vr.process_device(chunk), 1)
+    busy = sum(ms for _, ms, _ in kernels) / steps
+    k1 = sum(ms for name, ms, _ in kernels
+             if "fused_resample_kernel" in name) / steps
+    count = sum(c for _, _, c in kernels) / steps
+    print(f"  VR {vr.quality} steps: host enqueue {enqueue:.5f} ms/block, "
+          f"wall {wall / steps * 1e3:.5f} ms/block, device span "
+          f"{span / steps:.5f} ms/block, kernels busy {busy:.5f} ms/block "
+          f"(K1 {k1:.5f}) in {count:g} launches a block (torch.profiler; "
+          f"device idle share {max(0.0, 1 - busy / (wall / steps * 1e3)):.3f})"
+          f" on {card}")
+
+
+def vr_phase(gen, card: str) -> dict:
+    """VR drift correction, 'vr' and 'vr-hq', each through ``process()``
+    in two random chunkings and through ``process_device``: equal bit for
+    bit, 4 streams against the float64 CPU run, K1 launches, the 0.2 fs
+    tone's residual; K1 at the prestage's shape.  Returns K1's record
+    there and the 'vr-hq' device run (the checkpoint phase resumes it)."""
+    import torch
+    from go_audio_resampler_tpu_torch import VariableRateResampler
+    from go_audio_resampler_tpu_torch.utils import signals
+
+    n = VR_BLOCKS * VR_BLOCK
+    x_dev = 0.5 * torch.randn((VR_STREAMS, n), generator=gen, device="cuda")
+    x_dev[0] = torch.sin(2 * np.pi * VR_TONE * torch.arange(
+        n, dtype=torch.float64, device="cuda")).float()
+    x_dev[1] = torch.as_tensor(signals.sine(n, 1000.0, VR_IN),
+                               dtype=torch.float32, device="cuda")
+    x_np = x_dev.cpu().numpy()
+    out, resid = {}, {}
+
+    def make(quality, **kw):
+        kw.setdefault("batch", VR_STREAMS)
+        return VariableRateResampler(VR_MAX, VR_RATIO, block=VR_BLOCK,
+                                     quality=quality, **kw)
+
+    for quality in ("vr", "vr-hq"):
+        runs = {}
+        for name, route, seed in (("process", "host", 1),
+                                  ("process, other chunks", "host", 2),
+                                  ("process_device", "device", 0)):
+            vr = make(quality)
+            reset_launches()
+            runs[name] = vr_route(vr, route, x_np, x_dev,
+                                  np.random.default_rng(seed))
+            runs[name]["launches"] = launch_counts()
+            runs[name]["stats"] = vr.get_statistics()
+        want = vr_launches(vr, n)
+        ref = make(quality, batch=4, dtype=np.float64, device="cpu")
+        y64 = vr_route(ref, "host", x_np[:4].astype(np.float64), None,
+                       np.random.default_rng(3))["y"]
+        y = runs["process"]["y"]
+        err = rel(y[:4], y64)
+        same_dev = np.array_equal(runs["process_device"]["y"], y)
+        same_chunks = np.array_equal(runs["process, other chunks"]["y"], y)
+        resid[quality] = tone_residual(
+            y[0, :runs["process"]["before"]].astype(np.float64),
+            VR_TONE * VR_RATIO)
+        for name, r in runs.items():
+            blocks = VR_BLOCKS + 1
+            enqueue = (f", host enqueue {r['enqueue'] / blocks * 1e3:.4f} ms "
+                       "a block" if r["enqueue"] else "")
+            print(f"  VR {quality} {name}: {VR_STREAMS} x {n} samples -> "
+                  f"{r['y'].shape[1]} in {r['wall']:.4f} s = "
+                  f"{VR_STREAMS * n / r['wall'] / 1e6:.1f} Msamples/s in "
+                  f"({r['wall'] / blocks * 1e3:.4f} ms a block{enqueue}); "
+                  f"launches (K1, K2, K3) {r['launches']}; {r['stats']} on "
+                  f"{card}")
+        print(f"  VR {quality}: process_device == process() bit for bit: "
+              f"{same_dev}; two chunkings equal bit for bit: {same_chunks}; "
+              f"max |cuda f32 - cpu f64| over 4 streams = {err:.3g} of "
+              f"max|y|; 0.2 fs tone residual {resid[quality]:.4g} before "
+              f"the slew; K1 launches derived {want}")
+        require(same_dev and same_chunks, f"VR {quality}: routes differ")
+        require(all(r["launches"] == (want, 0, 0) for r in runs.values()),
+                f"VR {quality}: launches {[r['launches'] for r in runs.values()]}"
+                f" (expected {want})")
+        require(y[:4].shape == y64.shape and np.isfinite(y).all()
+                and err <= ENGINE_TOL, f"VR {quality} vs float64: {err}")
+        require(all(r["stats"] == runs["process"]["stats"]
+                    for r in runs.values()), f"VR {quality}: statistics")
+        vr_step_times(make(quality), x_dev, card)
+        out[quality] = runs["process_device"]["y"]
+    gain = 20 * np.log10(resid["vr"] / resid["vr-hq"])
+    print(f"  VR: 'vr-hq' cuts the 0.2 fs tone's residual by {gain:.2f} dB "
+          f"against 'vr' (floor {VR_HQ_GAIN_DB} dB)")
+    require(gain >= VR_HQ_GAIN_DB, f"VR-hq gain {gain} dB")
+    vr = make("vr-hq")
+    xext = torch.cat([torch.zeros((VR_STREAMS, vr._pre_t1 - 1),
+                                  device="cuda"), x_dev[:, :VR_BLOCK]], 1)
+    record = prestage_k1("VR prestage", vr._pre_band, vr._pre_coeffs, xext)
+    record["launches"] = vr_launches(vr, n)
+    return {"k1": record, "x": x_dev, "y_hq": out["vr-hq"]}
+
+
+def resume_check(label: str, make, feed, flush, save, load, chunks, cut,
+                 path) -> None:
+    """A stream run whole, and run again with a snapshot after ``cut``
+    chunks restored into a fresh object that goes on: the two outputs
+    must be equal bit for bit.  ``feed(obj, chunk)`` and ``flush(obj)``
+    return tensors on the card."""
+    import torch
+    a = make()
+    whole = torch.cat([feed(a, c) for c in chunks] + [flush(a)], dim=1)
+    b = make()
+    outs = [feed(b, c) for c in chunks[:cut]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save(b, path)
+    t1 = time.perf_counter()
+    c = make()
+    t2 = time.perf_counter()
+    load(c, path)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    outs += [feed(c, ch) for ch in chunks[cut:]] + [flush(c)]
+    same = bool(torch.equal(torch.cat(outs, dim=1), whole))
+    print(f"  checkpoint {label}: saved after {cut} of {len(chunks)} chunks "
+          f"({pathlib.Path(path).stat().st_size} bytes), save "
+          f"{(t1 - t0) * 1e3:.3f} ms, load {(t3 - t2) * 1e3:.3f} ms; the "
+          f"resumed stream equals the whole run bit for bit: {same}")
+    require(same, f"checkpoint {label}: the resumed stream differs")
+
+
+def checkpoint_phase(gen, card: str, vr_run: dict) -> None:
+    """Save mid-stream and resume in a fresh object, on the card: the main
+    path's ``EngineCore``, the 96k -> 44.1k composite inside its head
+    region, an API-A ``Resampler`` and the VR mid-slew."""
+    import tempfile
+    import torch
+    import go_audio_resampler_tpu_torch as gar
+    from go_audio_resampler_tpu_torch.engine import checkpoint as ck
+
+    def engine_feed(eng, ch):
+        return eng.process_device(ch)
+
+    def engine_flush(eng):
+        return eng.flush_device()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "state.npz"
+        plan = gar.plan_engine(RATE_IN, RATE_OUT, gar.Quality.HIGH)
+        n = RATE_IN * SECONDS
+        x = 0.5 * torch.randn((STREAMS, n), generator=gen, device="cuda")
+        chunks = [x[:, a:a + BLOCK] for a in range(0, n, BLOCK)]
+        resume_check("main path (EngineCore, 1024 x 10 s)",
+                     lambda: gar.EngineCore(plan, batch=STREAMS,
+                                            block=BLOCK),
+                     engine_feed, engine_flush, ck.save_stream_state,
+                     ck.load_stream_state, chunks, len(chunks) // 2, path)
+        del x, chunks
+        comp = composite_plan(((24000, False), (44100, True)))
+        n = COMP_IN * SECONDS
+        x = 0.5 * torch.randn((COMP_STREAMS, n), generator=gen,
+                              device="cuda")
+        probe = gar.EngineCore(comp, batch=COMP_STREAMS, block=2048)
+        blk = probe.block
+        probe.process_device(x[:, :blk])
+        require(0 == probe.samples_out < comp.op.n_head
+                and probe._head_have > 0,
+                f"composite: {probe.samples_out} outputs after one block")
+        chunks = [x[:, a:a + blk] for a in range(0, n - n % blk, blk)]
+        resume_check("96k->44.1k composite inside its head region "
+                     f"({COMP_STREAMS} x 10 s; 0 of {comp.op.n_head} head "
+                     "outputs emitted)",
+                     lambda: gar.EngineCore(comp, batch=COMP_STREAMS,
+                                            block=2048),
+                     engine_feed, engine_flush, ck.save_stream_state,
+                     ck.load_stream_state, chunks, 1, path)
+        del x, chunks, probe
+        n = RATE_IN * SECONDS
+        x = api_input(gen, RATE_IN, n)
+        chunks = [x[:, a:a + BLOCK] for a in range(0, n, BLOCK)]
+        resume_check(f"API-A Resampler ({API_CHANNELS} x 10 s)",
+                     lambda: api_resampler(RATE_IN, RATE_OUT, 3,
+                                           channels=API_CHANNELS,
+                                           dtype=np.float32,
+                                           max_input_size=BLOCK),
+                     lambda r, ch: r.process_multi_device(ch),
+                     lambda r: r.flush_multi_device(),
+                     ck.save_resampler_state, ck.load_resampler_state,
+                     chunks, len(chunks) // 2, path)
+        del x, chunks
+        # The VR mid-slew: the 'vr-hq' device run of the VR phase, resumed
+        # from a snapshot taken a chunk after the slew was set.
+        vr_x = vr_run["x"]
+        blk = VR_BLOCK * VR_CHUNK_BLOCKS
+        mid = VR_MID * VR_BLOCK
+        bounds = ([(a, min(mid, a + blk)) for a in range(0, mid, blk)]
+                  + [(a, min(vr_x.shape[1], a + blk))
+                     for a in range(mid, vr_x.shape[1], blk)])
+        cut = sum(1 for a, _ in bounds if a < mid) + 1
+
+        def make_vr():
+            return gar.VariableRateResampler(VR_MAX, VR_RATIO,
+                                             batch=VR_STREAMS,
+                                             block=VR_BLOCK,
+                                             quality="vr-hq")
+        vr = make_vr()
+        outs = []
+        for i, (a, b) in enumerate(bounds[:cut]):
+            if a == mid:
+                vr.set_io_ratio(VR_SLEW_TO, slew_len=VR_SLEW_LEN)
+            outs.append(vr.process_device(vr_x[:, a:b]))
+        slewing = vr.get_statistics()["slewRemaining"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save_vr_state(vr, path)
+        t1 = time.perf_counter()
+        fresh = make_vr()
+        t2 = time.perf_counter()
+        ck.load_vr_state(fresh, path)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        outs += [fresh.process_device(vr_x[:, a:b]) for a, b in bounds[cut:]]
+        outs.append(fresh.flush_device())
+        got = torch.cat(outs, dim=1).cpu().numpy()
+        same = np.array_equal(got, vr_run["y_hq"])
+        print(f"  checkpoint VR 'vr-hq' mid-slew ({slewing} slew outputs to "
+              f"go; {VR_STREAMS} x {vr_x.shape[1]}): save "
+              f"{(t1 - t0) * 1e3:.3f} ms, load {(t3 - t2) * 1e3:.3f} ms; "
+              f"the resumed stream equals the VR phase's device run bit for "
+              f"bit: {same} on {card}")
+        require(slewing > 0 and same, "checkpoint VR: the resumed stream "
+                f"differs (slew remaining {slewing})")
+
+
+def functional_phase(gen, card: str, general) -> dict:
+    """``functional.resample`` on 64 streams x 2 s: 48k -> 16k and 44.1k
+    -> 48k (the one-shot's operator: bit for bit ``oneshot``, one K1
+    launch) and 44.1k -> 48.001k (the block loop: one K1 launch a block,
+    within 2e-5 of max|y| of the one-shot phase's K3 output); the adjoint
+    identity, no launch in the backward; a few optimizer steps of a
+    learnable front end; K1 at the new shapes.  Returns their records."""
+    import torch
+    from go_audio_resampler_tpu_torch import functional, oneshot
+    from go_audio_resampler_tpu_torch.engine.oneshot import _pad
+
+    records = {}
+    for rate_in, rate_out in ((DECIM_IN, DECIM_OUT), (RATE_IN, RATE_OUT),
+                              (RATE_IN, WALK_OUT)):
+        label = f"{rate_in / 1000:g}k->{rate_out / 1000:g}k"
+        plan = functional._plan(float(rate_in), float(rate_out),
+                                functional.QualityPreset.HIGH)
+        scan = functional._needs_length_matrices(plan)
+        n = FUNC_SECONDS * rate_in
+        if scan:
+            x, ref = general
+            require(tuple(x.shape) == (FUNC_STREAMS, n), "general input")
+        else:
+            x = 0.5 * torch.randn((FUNC_STREAMS, n), generator=gen,
+                                  device="cuda")
+            ref = oneshot(plan, x)
+        functional.resample(x, rate_in, rate_out)          # warm
+        reset_launches()
+        y, wall, fwd_ms = timed(lambda: functional.resample(x, rate_in,
+                                                            rate_out))
+        counts = launch_counts()
+        if scan:
+            block, _cap, hold, _banks, pre, band = functional._walk_constants(
+                plan, torch.float32, x.device, "highest")
+            want = (-(-(n + plan.lengths.flush_pad(n) + hold) // block), 0, 0)
+            err = rel(y.cpu().numpy(), ref.cpu().double().numpy())
+            ok = err <= ENGINE_TOL
+            what = f"within {err:.3g} of max|y| of the one-shot (K3)"
+        else:
+            want = (1, 0, 0)
+            ok = bool(torch.equal(y, ref))
+            what = f"equal to oneshot bit for bit: {ok}"
+        xr = x.clone().requires_grad_()
+        yr = functional.resample(xr, rate_in, rate_out)
+        w = torch.randn(yr.shape, generator=gen, device="cuda")
+        torch.autograd.grad(yr, xr, w, retain_graph=True)  # warm
+        reset_launches()
+        (xbar,), _, bwd_ms = timed(lambda: torch.autograd.grad(
+            yr, xr, w, retain_graph=True))
+        bwd_counts = launch_counts()
+        lhs = float((yr.detach().double() * w.double()).sum())
+        rhs = float((x.double() * xbar.double()).sum())
+        scale = float(yr.detach().double().norm() * w.double().norm())
+        route = "block loop" if scan else "one-shot operator"
+        print(f"  functional {label} ({route}): "
+              f"[{FUNC_STREAMS}, {n}] -> {tuple(y.shape)}, {what}; "
+              f"forward {fwd_ms:.4f} ms, launches {counts} (expected {want}); "
+              f"backward {bwd_ms:.4f} ms, launches {bwd_counts}; <Rx, w> = "
+              f"{lhs:.9g}, <x, R^T w> = {rhs:.9g} (|diff| {abs(lhs - rhs):.3g},"
+              f" {abs(lhs - rhs) / scale:.3g} of |y| |w|) on {card}")
+        require(ok and counts == want, f"functional {label}: {what}, "
+                f"launches {counts}")
+        require(bwd_counts == (0, 0, 0), f"functional {label}: the backward "
+                f"launched {bwd_counts}")
+        require(abs(lhs - rhs) <= ADJOINT_TOL * scale,
+                f"functional {label}: adjoint {lhs} vs {rhs}")
+        if scan:
+            xext = _pad(x[:, :block], plan.pre_taps - 1, 0)
+            rec = prestage_k1(f"functional {label} prestage", band, pre,
+                              xext)
+            rec["launches"] = counts[0]
+            records["functional_scan_prestage"] = rec
+        elif rate_out == DECIM_OUT:
+            r_t, ipx, op, _lam = functional._aux(plan, n, torch.float32,
+                                                 x.device, "highest")
+            wx, p2 = r_t.shape
+            nf = -(-plan.lengths.canonical(n) // p2)
+            need = (nf - 1) * ipx + wx
+            xs = _pad(x, 0, max(plan.lengths.flush_pad(n), need - n))
+            taps = torch.as_tensor(plan.decim_coeffs, dtype=torch.float32,
+                                   device="cuda")[None, None, :]
+            lib_in = xs[:, None, :]
+            rec = k1_at(f"functional {label}", xs.contiguous(), r_t, ipx, p2,
+                        nf, op, {"library_conv1d_ms": lambda: torch.nn.
+                                 functional.conv1d(lib_in, taps,
+                                                   stride=plan.factor)})
+            rec["launches"] = counts[0]
+            records["functional_48k_16k"] = rec
+    # Training ingest: a learnable front end before 48k -> 16k.
+    torch.manual_seed(0)
+    x = torch.randn((FUNC_STREAMS, 1, FUNC_SECONDS * DECIM_IN),
+                    generator=gen, device="cuda")
+    target = functional.resample(torch.tanh(0.7 * x[:, 0]), DECIM_IN,
+                                 DECIM_OUT)
+    front = torch.nn.Conv1d(1, 1, 9, padding=4).cuda()
+    opt = torch.optim.Adam(front.parameters(), lr=0.05)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(5):
+        y = functional.resample(torch.tanh(front(x)[:, 0]), DECIM_IN,
+                                DECIM_OUT)
+        loss = ((y - target) ** 2).mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    step_ms = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"  functional training: 5 Adam steps of a Conv1d front end "
+          f"through 48k->16k on [{FUNC_STREAMS}, {x.shape[2]}]: loss "
+          f"{losses[0]:.6g} -> {losses[-1]:.6g}, {step_ms:.3f} ms a step on "
+          f"{card}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"functional training: losses {losses}")
+    return records
+
+
+def shims_phase(gen, card: str) -> dict:
+    """``soxr_compat.resample`` on 2 channels x 10 s (44.1k -> 48k HQ) and
+    ``torch_compat.Resample`` (48k -> 44.1k) on a [64, 96000] tensor on the
+    card, each equal bit for bit to ``oneshot`` on its plan, one K1 launch
+    each; K1 at both shapes.  Returns their records."""
+    import importlib
+    import torch
+    from go_audio_resampler_tpu_torch import (Quality, oneshot, plan_engine,
+                                              soxr_compat, torch_compat)
+    from go_audio_resampler_tpu_torch.engine.oneshot import _pad, _pad_right
+    osm = importlib.import_module("go_audio_resampler_tpu_torch.engine.oneshot")
+
+    def k1_of(label, plan, x):
+        r_t, ipx, op, lam = osm._oneshot_aux(plan, x.shape[1], torch.float32,
+                                             x.device, "highest")
+        wx, p2 = r_t.shape
+        nf = -(-plan.lengths.canonical(x.shape[1]) // p2)
+        xs = _pad_right(_pad(x, lam, 0), (nf - 1) * ipx + wx)
+        return k1_at(label, xs, r_t, ipx, p2, nf, op)
+
+    records = {}
+    n = RATE_IN * SECONDS
+    frames = (0.5 * torch.randn((2, n), generator=gen, device="cuda")).cpu(
+        ).numpy().T.copy()
+    plan = plan_engine(RATE_IN, RATE_OUT, Quality.HIGH)
+    reset_launches()
+    y, wall, _ = timed(lambda: soxr_compat.resample(frames, RATE_IN,
+                                                    RATE_OUT, "HQ"))
+    counts = launch_counts()
+    ref = oneshot(plan, frames.T.copy()).cpu().numpy().T
+    same = np.array_equal(y, ref) and y.dtype == np.float32
+    print(f"  soxr_compat.resample: {frames.shape} -> {y.shape} in "
+          f"{wall * 1e3:.3f} ms (numpy in and out), launches {counts}; "
+          f"equal to oneshot bit for bit: {same} on {card}")
+    require(same and counts == (1, 0, 0), f"soxr_compat: {same}, {counts}")
+    rec = k1_of("soxr 2 ch x 10 s", plan, torch.from_numpy(
+        frames.T.copy()).cuda())
+    records["soxr_2ch"] = {**rec, "launches": counts[0]}
+    x = 0.5 * torch.randn((FUNC_STREAMS, FUNC_SECONDS * DECIM_IN),
+                          generator=gen, device="cuda")
+    t = torch_compat.Resample(DECIM_IN, RATE_IN)
+    reset_launches()
+    y, wall, span = timed(lambda: t(x))
+    counts = launch_counts()
+    _, warm, warm_span = timed(lambda: t(x))
+    plan = plan_engine(DECIM_IN, RATE_IN, Quality.HIGH)
+    ref = oneshot(plan, x)
+    same = bool(torch.equal(y, ref[:, :y.shape[1]]))
+    n_out = -(-x.shape[1] * RATE_IN // DECIM_IN)
+    print(f"  torch_compat.Resample: {tuple(x.shape)} on {x.device} -> "
+          f"{tuple(y.shape)} {y.dtype} on {y.device} in {wall * 1e3:.3f} ms "
+          f"the first call (the operator's host design included; device "
+          f"span {span:.3f} ms), {warm * 1e3:.3f} ms the next (span "
+          f"{warm_span:.3f} ms), launches {counts}; equal to oneshot bit for "
+          f"bit: {same} on {card}")
+    require(same and counts == (1, 0, 0) and y.device == x.device
+            and tuple(y.shape) == (FUNC_STREAMS, n_out),
+            f"torch_compat: {same}, {counts}, {tuple(y.shape)}")
+    rec = k1_of("torch_compat [64, 96000]", plan, x)
+    records["torch_compat_48k_44k"] = {**rec, "launches": counts[0]}
+    return records
+
+
+def phase13(gen, card: str, general) -> dict:
+    """Phase 13: the variable-rate resampler, checkpoints, the functional
+    op and the shims; returns the K1 records of its shapes."""
+    import torch
+    t0 = time.perf_counter()
+    vr = vr_phase(gen, card)
+    shapes = {"vr_prestage": vr["k1"]}
+    torch.cuda.empty_cache()
+    checkpoint_phase(gen, card, vr)
+    del vr
+    torch.cuda.empty_cache()
+    shapes.update(functional_phase(gen, card, general))
+    shapes.update(shims_phase(gen, card))
+    print(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
+    return shapes
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3176,7 +3759,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("general walk:")
     walk = walk_path(gen, card, general, args.profile)
-    del general
     k1["shapes"]["walk_prestage"] = {**walk["k1"],
                                      "launches": walk["launches"]}
     print("dft_up and cubic:")
@@ -3212,6 +3794,14 @@ def main() -> int:
           f"{api['fft_walk']} (FFT-2, the prestage), {api['fft_decim_k1']} "
           f"(FFT-3's K1 route); K3 {api['api_d'][2]} (API-D), "
           f"{api['conv_k3']} (resample_mono); the FFT routes launch none")
+    torch.cuda.empty_cache()
+    print("variable rate, checkpoints, functional and shims:")
+    shapes13 = phase13(gen, card, general)
+    del general
+    k1["shapes"].update(shapes13)
+    print("  launches by path: K1 " + ", ".join(
+        f"{rec['launches']} ({name})" for name, rec in shapes13.items())
+          + "; K2 and K3 none")
     print("chunking:")
     chunking_phase(args.seed)
     if args.profile:

@@ -11,12 +11,14 @@ prefilter), cubic plans and integer upsampling, on the time-major twin of
 its fused banded steps, and on the one-shot entry point, through three
 hand-written CUDA kernels (``ops/csrc/*.cu``); long prefilters and
 decimation filters past their crossovers run by FFT overlap-save
-(``engine/fftstage.py``, ``torch.fft``).
+(``engine/fftstage.py``, ``torch.fft``).  Beside them: the variable-rate
+resampler (``VariableRateResampler``, ``new_variable_rate``), checkpoint
+and resume of live streams (``engine.checkpoint``, in the JAX package's
+file format), the differentiable ``functional.resample``, and the
+python-soxr and torchaudio shims (``soxr_compat``, ``torch_compat``).
 
 Every entry point runs on the card (``device='cuda'``) unless the caller
-passes ``device='cpu'``.  Not ported yet, and not exported: the
-variable-rate resampler (``VariableRateResampler``; ``new_variable_rate``
-raises) and ``functional`` (``resample``).
+passes ``device='cpu'``.
 """
 
 from .api import (
@@ -62,8 +64,11 @@ from .convenience import (
     interleave_to_stereo_float32,
     deinterleave_from_stereo_float32,
 )
-from .engine import EngineCore, TimeMajorEngine, oneshot, plan_engine
+from .engine import (EngineCore, TimeMajorEngine, VariableRateResampler,
+                     oneshot, plan_engine)
 from .filterdesign import Quality, Quality as EngineQuality
+from . import functional
+from .functional import resample
 
 __version__ = "0.1.0"
 
@@ -84,5 +89,6 @@ __all__ = [
     "interleave_to_stereo", "deinterleave_from_stereo",
     "interleave_to_stereo_float32", "deinterleave_from_stereo_float32",
     "EngineCore", "TimeMajorEngine", "plan_engine", "oneshot",
-    "EngineQuality", "Quality",
+    "EngineQuality", "Quality", "VariableRateResampler", "functional",
+    "resample",
 ]

@@ -220,14 +220,21 @@ def new_engine_float32(input_rate: float, output_rate: float,
 
 def new_variable_rate(input_rate: float, max_output_rate: float, *,
                       output_rate: float | None = None, channels: int = 1,
-                      dtype=np.float32, hq: bool = False):
+                      dtype=np.float32, hq: bool = False, device='cuda'):
     """Variable-rate resampler (libsoxr SOXR_VR; beyond the Go reference).
 
-    Not ported yet: raises ``NotImplementedError``.
+    ``max_output_rate`` bounds how high the output rate may ever be set
+    (sizes device buffers, soxr-style).  The initial rate defaults to
+    ``max_output_rate``; change it at runtime with
+    ``set_io_ratio(input_rate / new_output_rate, slew_len)``.
     """
-    raise NotImplementedError(
-        "new_variable_rate: the variable-rate resampler is not ported yet "
-        "(ROADMAP.md, queue 1 item 6, engine/variable.py)")
+    from .engine.variable import VariableRateResampler
+
+    init_out = output_rate if output_rate is not None else max_output_rate
+    return VariableRateResampler(
+        max_output_rate / input_rate, input_rate / init_out,
+        batch=channels, dtype=dtype, quality='vr-hq' if hq else 'vr',
+        device=device)
 
 
 # --- one-shot helpers -------------------------------------------------------

@@ -11,10 +11,16 @@ from .plan import (EnginePlan, EngineConfigError, plan_engine,
 from .counts import LengthModel
 from .oneshot import oneshot
 from .streaming import EngineCore
+from .checkpoint import (save_stream_state, load_stream_state,
+                         save_resampler_state, load_resampler_state,
+                         save_vr_state, load_vr_state)
+from .variable import VariableRateResampler
 from .tmajor import TimeMajorEngine
 
 __all__ = [
     "EnginePlan", "EngineConfigError", "plan_engine", "plan_from_arrays",
     "MIN_RATIO", "MAX_RATIO", "LengthModel", "oneshot", "EngineCore",
-    "TimeMajorEngine",
+    "save_stream_state", "load_stream_state", "save_resampler_state",
+    "load_resampler_state", "save_vr_state", "load_vr_state",
+    "VariableRateResampler", "TimeMajorEngine",
 ]

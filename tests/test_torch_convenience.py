@@ -191,8 +191,17 @@ def test_interleave_equal():
 
 
 def test_new_variable_rate_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tar.new_variable_rate(44100, 48000)
+    """``new_variable_rate`` returns the port's resampler, built as the
+    JAX package builds its own."""
+    from go_audio_resampler_tpu_torch.engine import VariableRateResampler
+    want = jar.new_variable_rate(44100, 48000, output_rate=44100,
+                                 channels=2, hq=True)
+    got = tar.new_variable_rate(44100, 48000, output_rate=44100, channels=2,
+                                hq=True, device="cpu")
+    assert isinstance(got, VariableRateResampler)
+    assert ((got.max_ratio, got.get_io_ratio(), got.batch, got.quality,
+             got.dtype) == (want.max_ratio, want.get_io_ratio(), want.batch,
+                            want.quality, want.dtype))
 
 
 def test_defaults_run_on_the_card():
@@ -219,9 +228,8 @@ def test_compute_dtype_on_the_card():
 
 
 def test_package_exports():
-    """The JAX package's exports, less what is still to port."""
-    missing = {"VariableRateResampler", "functional", "resample"}
-    assert set(jar.__all__) - set(tar.__all__) == missing
+    """The JAX package's exports, all of them."""
+    assert set(jar.__all__) - set(tar.__all__) == set()
     assert set(tar.__all__) - set(jar.__all__) == {"TimeMajorEngine",
                                                    "Quality"}
     for name in tar.__all__:

@@ -1026,3 +1026,140 @@ def test_fft_decimation_device_mode_equals_host(cuda, monkeypatch):
     y_k1 = np.concatenate([k1.process(x), k1.flush()], axis=1)
     assert y_k1.shape == y_host.shape
     assert np.abs(y_host - y_k1).max() <= 1e-5 * np.abs(y_k1).max()
+
+
+# -- the variable-rate resampler, checkpoints, functional, shims -----------
+
+def _vr_run(vr, x, route, cuts=(3 * 512,)):
+    """Feed ``x`` [S, n] through ``process()`` at ``cuts`` or through
+    ``process_device`` in block multiples, a slew set after the first
+    piece; then flush.  Returns the host array."""
+    outs, at = [], 0
+    for i, c in enumerate(list(cuts) + [x.shape[1]]):
+        piece = x[:, at:c]
+        if route == "device":
+            outs.append(vr.process_device(
+                torch.from_numpy(piece).to(vr.device)).cpu().numpy())
+        else:
+            outs.append(vr.process(piece))
+        at = c
+        if i == 0:
+            vr.set_io_ratio(48000 / 48010, slew_len=1500)
+    tail = vr.flush_device() if route == "device" else vr.flush()
+    outs.append(tail.cpu().numpy() if route == "device" else tail)
+    return np.concatenate(outs, axis=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quality", ["vr", "vr-hq"])
+def test_vr_process_device_equals_process_bit_for_bit(cuda, quality):
+    from go_audio_resampler_tpu_torch import VariableRateResampler as VR
+    x = np.random.default_rng(7).standard_normal((4, 8 * 512)).astype(
+        np.float32) * 0.5
+    kw = dict(batch=4, block=512, quality=quality, device="cuda")
+    before = fused.launches
+    host = _vr_run(VR(2.0, 48000 / 47990, **kw), x, "host")
+    launched = fused.launches - before
+    dev = _vr_run(VR(2.0, 48000 / 47990, **kw), x, "device")
+    chunked = _vr_run(VR(2.0, 48000 / 47990, **kw), x, "host",
+                      cuts=(3 * 512, 2000, 2901, 3000))
+    np.testing.assert_array_equal(dev, host)
+    np.testing.assert_array_equal(chunked, host)
+    cpu = _vr_run(VR(2.0, 48000 / 47990, batch=4, block=512,
+                     quality=quality, dtype=np.float64, device="cpu"),
+                  x.astype(np.float64), "host")
+    assert host.shape == cpu.shape
+    assert np.abs(host - cpu).max() <= TOL * max(1.0, np.abs(cpu).max())
+    # 'vr-hq': one K1 launch (the prestage) a block, the flush's included.
+    blocks = x.shape[1] // 512 + 1
+    assert launched == (blocks if quality == "vr-hq" else 0)
+
+
+@pytest.mark.cuda
+def test_checkpoint_resumes_bit_identical_on_the_card(cuda, tmp_path):
+    from go_audio_resampler_tpu_torch import VariableRateResampler as VR
+    from go_audio_resampler_tpu_torch.engine import (load_stream_state,
+                                                     load_vr_state,
+                                                     save_stream_state,
+                                                     save_vr_state)
+    plan = plan_engine(44100, 48000, Quality.HIGH)
+    x = np.random.default_rng(8).standard_normal((8, 6 * 2352)).astype(
+        np.float32)
+    full = EngineCore(plan, batch=8, block=2352)
+    want = np.concatenate([full.process(x[:, :7000]),
+                           full.process(x[:, 7000:]), full.flush()], axis=1)
+    a = EngineCore(plan, batch=8, block=2352)
+    part = a.process(x[:, :7000])
+    save_stream_state(a, tmp_path / "e.npz")
+    b = EngineCore(plan, batch=8, block=2352)
+    load_stream_state(b, tmp_path / "e.npz")
+    assert b.state.device.type == "cuda"
+    got = np.concatenate([part, b.process(x[:, 7000:]), b.flush()], axis=1)
+    np.testing.assert_array_equal(got, want)
+    # The VR mid-slew, resumed from its file.
+    kw = dict(batch=8, block=512, quality="vr-hq", device="cuda")
+    v_full, v_a, v_b = (VR(2.0, 48000 / 47990, **kw) for _ in range(3))
+    for v in (v_full, v_a):
+        v.process(x[:, :2000])
+        v.set_io_ratio(48000 / 48010, slew_len=3000)
+        v.process(x[:, 2000:4000])
+    save_vr_state(v_a, tmp_path / "v.npz")
+    load_vr_state(v_b, tmp_path / "v.npz")
+    want = np.concatenate([v_full.process(x[:, 4000:]), v_full.flush()], 1)
+    got = np.concatenate([v_b.process(x[:, 4000:]), v_b.flush()], 1)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rates,preset", [
+    ((48000, 16000), 3), ((44100, 48000), 3), ((48000, 96000), 3),
+    ((44100, 48001), 3), ((44100, 48000), 0)])
+def test_functional_on_the_card(cuda, rates, preset):
+    """The forward launches K1 (once on the exact, decimation and dft_up
+    plans, once a block on the walk's block loop, never on cubic's) and
+    equals the one-shot; the backward launches nothing and satisfies the
+    adjoint identity."""
+    from go_audio_resampler_tpu_torch import functional
+    quality = functional.QualityPreset(preset)
+    plan = functional._plan(float(rates[0]), float(rates[1]), quality)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (8, 2 * rates[0])).astype(np.float32)).to(cuda).requires_grad_()
+    before = (fused.launches, general.launches)
+    y = functional.resample(x, *rates, quality=quality)
+    torch.cuda.synchronize()
+    launched = (fused.launches - before[0], general.launches - before[1])
+    ref = run_oneshot(plan, x.detach(), device="cuda")
+    if functional._needs_length_matrices(plan):
+        assert launched[1] == 0
+        assert (launched[0] >= 1) == (plan.kind == "two_stage")
+        assert (y.detach() - ref).abs().max().item() <= TOL * max(
+            1.0, ref.abs().max().item())
+    else:
+        assert launched == (1, 0)
+        assert torch.equal(y.detach(), ref)
+    w = torch.randn(y.shape, device=cuda)
+    before = (fused.launches, tmajor.launches, general.launches)
+    (xbar,) = torch.autograd.grad(y, x, w)
+    torch.cuda.synchronize()
+    assert (fused.launches, tmajor.launches, general.launches) == before
+    lhs = float((y.detach().double() * w.double()).sum())
+    rhs = float((x.detach().double() * xbar.double()).sum())
+    # float32 products: held to 1e-5 of |y| |w| (the terms' scale)
+    scale = float(y.detach().double().norm() * w.double().norm())
+    assert abs(lhs - rhs) <= 1e-5 * scale, (lhs, rhs, scale)
+
+
+@pytest.mark.cuda
+def test_shims_equal_the_oneshot_on_the_card(cuda):
+    from go_audio_resampler_tpu_torch import soxr_compat, torch_compat
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (4, 9600)).astype(np.float32)).to(cuda)
+    plan = plan_engine(96000.0, 44100.0, Quality.HIGH)
+    y = torch_compat.Resample(96000, 44100)(x)
+    ref = run_oneshot(plan, x, device="cuda")
+    assert y.device == x.device and y.dtype == x.dtype
+    assert torch.equal(y, ref[:, :y.shape[1]])
+    frames = x[:2].T.cpu().numpy()
+    ys = soxr_compat.resample(frames, 96000, 44100)
+    np.testing.assert_array_equal(ys, run_oneshot(
+        plan, x[:2], device="cuda").cpu().numpy().T)
