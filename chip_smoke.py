@@ -163,11 +163,40 @@ is printed):
       and ``torch_compat.Resample`` (48k -> 44.1k, a [64, 96000] tensor on
       the card) equal to ``oneshot`` bit for bit, one K1 launch each; K1
       at both shapes.
+14. Sharding, the CLI, the quality tool and the roofline.
+   Sharding at world size 1 on a one-rank ``nccl`` group (``parallel``).
+      ``ShardedEngineCore`` on the main path (1024 x 10 s, block 2352,
+      ``process_device``): equal to ``EngineCore`` bit for bit, 190 K1
+      launches, ``DTensor`` outputs with ``Shard(0)``; Msamples/s in and
+      host enqueue a step of both, in warm runs taken in turns.
+      ``sharded_stream_step``: the exact branch on 1024 streams (one K1
+      launch a step, within 2e-5 of ``oneshot`` after the ramp, the MAX
+      all-reduce's peak equal to max|y|) and the walk (44.1k -> 48.001k,
+      256 streams, within 2e-5 of the serial walk); ``sharded_oneshot``
+      on 64 x 2 s, rational (K1) and general (K3), equal to ``oneshot`` bit
+      for bit; ``global_stream_stats`` against torch; the sharded VR,
+      'vr' and 'vr-hq' (256 x 10.03 s), equal to the serial one bit for
+      bit.
+   CLI. ``resample_wav`` on a 5-minute stereo 24-bit 44.1 kHz file (a 1
+      kHz tone and noise from ``--seed``) to 48 kHz HIGH on the default
+      device: the canonical length, bit for bit ``EngineCore.stream`` on
+      the decoded input written the same way, channel 0's THD <= -130
+      dB, the realtime factor, K1 at its step shape; batch mode on 32
+      stereo files of 5-60 s, each equal to ``oneshot`` of its own file
+      bit for bit, K1 at the largest sub-batch; ``resample_info`` and
+      ``analyze_filter`` exit 0; the native WAV library loads.
+   Quality. ``tools/quality_cuda.py``'s full check set, every check
+      passing, on one JSON line.
+   Roofline. ``roofline.analyze`` of the main path's and the sharded
+      engine's Msamples/s at 'highest' against this card's peaks (the
+      card must be known; every share <= 100%).
 
 Each path is driven with every launch count set to 0 just before it and
 read just after; launches made to compare a kernel with its plain version
 are not counted.  The phases run in the order 1, 2, 8 (kernels and
-one-shot), 3, 4, 8 (engines and gate), 5, 6, 9, 10, 11, 12, 13, 7.  The last three
+one-shot), 3, 4, 8 (engines and gate), 5, 6, 9, 10, 11, 12, 13, 14, 7.
+Phase 14's records time each kernel at the shape its path really gave
+it (its first launch there, recorded by a spy).  The last three
 lines are the card, the kernels as JSON, and ``{"ok": true, "device":
 {...}}``.  Every time printed is this card's, measured in this run.
 """
@@ -741,6 +770,48 @@ def k3_cost(x, m, starts, bands, warpgroups: int) -> dict:
             * -(-tile // (warpgroups * general.WARPGROUP_P))}
 
 
+def k3_at(label: str, x, m, starts, bands, wgs) -> dict:
+    """K3 timed at one shape (x [S, n], M [n_tiles, w, tile]) beside its
+    plain version and ``torch.bmm`` over the gathered frames, with its
+    bounds; the record for the kernels' line."""
+    import torch
+    from go_audio_resampler_tpu_torch.ops import general
+
+    n_tiles, w_band, tile = m.shape
+    kw = dict(w_band=w_band, tile=tile, tier="highest")
+    cost = k3_cost(x, m, starts, bands, wgs)
+    ms = graph_ms(lambda: general.general_resample(
+        x, m, starts, bands=bands, warpgroups=wgs, **kw))
+    plain_ms = graph_ms(lambda: general.general_resample_reference(
+        x, m, starts, **kw), reps=5, iters=5)
+    # No single PyTorch call computes K3; the nearest is one batched
+    # product over frames already gathered (the gather not timed).
+    idx = starts[:, None] + torch.arange(w_band, device="cuda")[None, :]
+    frames = x[:, idx].permute(1, 0, 2).contiguous()      # [T, S, W]
+    bmm = torch.bmm(frames, m).permute(1, 0, 2).reshape(x.shape[0], -1)
+    bmm_err = (bmm - general.general_resample(
+        x, m, starts, bands=bands, warpgroups=wgs, **kw)).abs().max().item()
+    require(bmm_err <= KERNEL_TOL, f"K3 {label}: torch.bmm disagrees "
+            f"by {bmm_err}")
+    bmm_ms = graph_ms(lambda: torch.bmm(frames, m), reps=5, iters=5)
+    print(f"  K3 {label} shape: kernel {ms:.5f} ms, plain "
+          f"(gather+einsum) {plain_ms:.5f} ms, no single library call "
+          f"(nearest: torch.bmm over the gathered frames, gather not "
+          f"timed, {bmm_ms:.5f} ms); bound {cost['bound_ms']:.5f} ms, "
+          f"{cost['bound_by']} ({cost['bytes']} bytes with M's "
+          f"{cost['nnz_share']:.4f} non-zeros, 3x{cost['flops_nnz']} "
+          f"TF32 flops), dense-M bound {cost['bound_dense_ms']:.5f} ms "
+          f"({cost['bytes_dense']} bytes); kernel at "
+          f"{cost['bound_ms'] / ms:.3f} of its bound; bands hold "
+          f"{cost['band_share_8_columns']:.4f} (8 columns) and "
+          f"{cost['band_share_warpgroup']:.4f} (64 columns) of the "
+          f"dense product, a 64-column group's band "
+          f"{cost['own_share_of_pairs']:.4f} of its 128-column pair's; "
+          f"{cost['blocks']} blocks of {wgs} warpgroup(s)")
+    return {"ms": ms, "plain_ms": plain_ms, "bmm_gathered_ms": bmm_ms,
+            **cost}
+
+
 def k3_phase(gen) -> dict:
     """K3 against its plain version, then timed at the one-shot general
     and cubic shapes."""
@@ -822,39 +893,7 @@ def k3_phase(gen) -> dict:
     torch.cuda.empty_cache()
 
     for shape, (x, m, starts, bands, wgs) in inputs.items():
-        n_tiles, w_band, tile = m.shape
-        kw = dict(w_band=w_band, tile=tile, tier="highest")
-        cost = k3_cost(x, m, starts, bands, wgs)
-        ms = graph_ms(lambda: general.general_resample(
-            x, m, starts, bands=bands, warpgroups=wgs, **kw))
-        plain_ms = graph_ms(lambda: general.general_resample_reference(
-            x, m, starts, **kw), reps=5, iters=5)
-        # No single PyTorch call computes K3; the nearest is one batched
-        # product over frames already gathered (the gather not timed).
-        idx = starts[:, None] + torch.arange(w_band, device="cuda")[None, :]
-        frames = x[:, idx].permute(1, 0, 2).contiguous()      # [T, S, W]
-        bmm = torch.bmm(frames, m).permute(1, 0, 2).reshape(x.shape[0], -1)
-        bmm_err = (bmm - general.general_resample(
-            x, m, starts, bands=bands, warpgroups=wgs, **kw)).abs().max().item()
-        require(bmm_err <= KERNEL_TOL, f"K3 {shape}: torch.bmm disagrees "
-                f"by {bmm_err}")
-        bmm_ms = graph_ms(lambda: torch.bmm(frames, m), reps=5, iters=5)
-        print(f"  K3 one-shot {shape} shape: kernel {ms:.5f} ms, plain "
-              f"(gather+einsum) {plain_ms:.5f} ms, no single library call "
-              f"(nearest: torch.bmm over the gathered frames, gather not "
-              f"timed, {bmm_ms:.5f} ms); bound {cost['bound_ms']:.5f} ms, "
-              f"{cost['bound_by']} ({cost['bytes']} bytes with M's "
-              f"{cost['nnz_share']:.4f} non-zeros, 3x{cost['flops_nnz']} "
-              f"TF32 flops), dense-M bound {cost['bound_dense_ms']:.5f} ms "
-              f"({cost['bytes_dense']} bytes); kernel at "
-              f"{cost['bound_ms'] / ms:.3f} of its bound; bands hold "
-              f"{cost['band_share_8_columns']:.4f} (8 columns) and "
-              f"{cost['band_share_warpgroup']:.4f} (64 columns) of the "
-              f"dense product, a 64-column group's band "
-              f"{cost['own_share_of_pairs']:.4f} of its 128-column pair's; "
-              f"{cost['blocks']} blocks of {wgs} warpgroup(s)")
-        shapes[shape] = {"ms": ms, "plain_ms": plain_ms,
-                         "bmm_gathered_ms": bmm_ms, **cost}
+        shapes[shape] = k3_at(f"one-shot {shape}", x, m, starts, bands, wgs)
     main = shapes["general"]
     return {"name": "general_resample", "route": "cuda",
             "source": "go_audio_resampler_tpu_torch/ops/csrc/"
@@ -3678,6 +3717,579 @@ def phase13(gen, card: str, general) -> dict:
     return shapes
 
 
+# -- sharding, the CLI, the quality tool and the roofline (phase 14) ---------
+
+#: Sharded walk: 44.1k -> 48.001k HIGH, 256 streams; 20 steps a sharded
+#: stream step.
+SHARD_WALK_STREAMS, SHARD_STEPS = 256, 20
+#: CLI: a 5-minute stereo 24-bit 44.1 kHz file (a 1 kHz tone and noise)
+#: to 48 kHz HIGH; batch mode, 32 stereo 16-bit files of 5 to 60 s.
+CLI_SECONDS, CLI_FILES, CLI_THD_DB = 300, 32, -130.0
+
+
+def local(y):
+    """A ``DTensor``'s local shard, or ``y`` itself."""
+    from torch.distributed.tensor import DTensor
+    return y.to_local() if isinstance(y, DTensor) else y
+
+
+def is_row_sharded(y) -> bool:
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(y, DTensor) and y.placements == (Shard(0),)
+
+
+class Calls(list):
+    """The recorded ``(args, kwargs)`` of a kernel's calls, one a shape;
+    ``total`` counts every call."""
+    total = 0
+
+
+@contextlib.contextmanager
+def kernel_calls(module, name: str):
+    """Records the arguments of the first call of each shape that the
+    block makes to ``module.name`` (the launch counter counts every call
+    as before), so that the kernel can be timed at the shapes a path
+    really gave it."""
+    calls, seen, real = Calls(), set(), getattr(module, name)
+
+    def spy(*args, **kw):
+        calls.total += 1
+        key = (tuple(tuple(a.shape) for a in args),
+               tuple((k, v) for k, v in kw.items() if isinstance(v, int)))
+        if key not in seen:
+            seen.add(key)
+            calls.append((args, kw))
+        return real(*args, **kw)
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def k1_calls():
+    from go_audio_resampler_tpu_torch.ops import fused
+    return kernel_calls(fused, "fused_resample")
+
+
+def k3_calls():
+    from go_audio_resampler_tpu_torch.ops import general
+    return kernel_calls(general, "general_resample")
+
+
+def k1_at_call(label: str, call) -> dict:
+    (data, r_t), kw = call
+    return k1_at(label, data, r_t, kw["ipx"], kw["p2"], kw["n_frames"],
+                 kw["op"])
+
+
+def k3_at_call(label: str, call) -> dict:
+    """K3 at a recorded call's shape: against its plain version within
+    2e-5 of max|y|, then timed (``k3_at``)."""
+    import torch
+    from go_audio_resampler_tpu_torch.ops import general
+    (x, m, starts), kw = call
+    shape = dict(w_band=kw["w_band"], tile=kw["tile"], tier="highest")
+    y = general.general_resample(x, m, starts, bands=kw["bands"],
+                                 warpgroups=kw["warpgroups"], **shape)
+    ref = general.general_resample_reference(x, m, starts, **shape)
+    torch.cuda.synchronize()
+    err = (y - ref).abs().max().item() / ref.abs().max().item()
+    print(f"  K3 {label}: x {tuple(x.shape)}, M {tuple(m.shape)}: max "
+          f"|kernel - plain| = {err:.3g} of max|y|")
+    require(err <= KERNEL_TOL, f"K3 {label}: error {err}")
+    return {**k3_at(label, x, m, starts, kw["bands"], kw["warpgroups"]),
+            "max_abs_err": err}
+
+
+def sharded_main(gen, card: str, mesh) -> dict:
+    """The main path through ``ShardedEngineCore`` at world size 1 beside
+    the serial ``EngineCore``: a serial and a sharded run compared bit
+    for bit (the first pays the allocator's growth), then warm runs in
+    turns (sharded, serial, serial, sharded) for Msamples/s in and host
+    enqueue a step; 190 K1 launches and ``DTensor`` outputs in each."""
+    import torch
+    from go_audio_resampler_tpu_torch import (EngineCore, Quality, parallel,
+                                              plan_engine)
+
+    plan = plan_engine(RATE_IN, RATE_OUT, Quality.HIGH)
+    n = RATE_IN * SECONDS
+    x = torch.empty((STREAMS, n), device="cuda").normal_(generator=gen)
+    x *= 0.5
+    chunks = [(a, min(n, a + BLOCK)) for a in range(0, n, BLOCK)]
+    runs = {}
+    for name in ("serial", "sharded", "sharded, warm 1", "serial, warm 1",
+                 "serial, warm 2", "sharded, warm 2"):
+        if name.startswith("sharded"):
+            eng = parallel.ShardedEngineCore(plan, mesh,
+                                             batch_per_device=STREAMS,
+                                             block=BLOCK)
+        else:
+            eng = EngineCore(plan, batch=STREAMS, block=BLOCK)
+        reset_launches()
+        with (k1_calls() if name == "sharded"
+              else contextlib.nullcontext(Calls())) as calls:
+            outs, st = timed_run(eng, lambda a, b: x[:, a:b], chunks)
+        st["launches"] = launch_counts()
+        if calls:
+            k1_call = calls[0]
+        st["dtensors"] = all(is_row_sharded(o) for o in outs)
+        st["state_rows"] = eng.state.shape[0]
+        if "warm" not in name:
+            st["y"] = torch.cat([local(o) for o in outs], dim=1)
+        del outs, eng
+        runs[name] = st
+        print(f"  {name}: {STREAMS} x {n} samples in {st['wall']:.4f} s = "
+              f"{STREAMS * n / st['wall'] / 1e6:.1f} Msamples/s in; "
+              f"launches (K1, K2, K3) {st['launches']}; {run_stats(st)} on "
+              f"{card}")
+    same = torch.equal(runs["sharded"]["y"], runs["serial"]["y"])
+    canonical = plan.lengths.canonical(n)
+    enq = {k: float(np.median(v["steps_ms"])) for k, v in runs.items()}
+    warm = {e: [k for k in runs if k.startswith(e) and "warm" in k]
+            for e in ("sharded", "serial")}
+    print(f"  sharded main path: equal to the serial engine bit for bit: "
+          f"{same}; outputs DTensors with Shard(0): "
+          f"{all(r['dtensors'] for k, r in runs.items() if 'sharded' in k)};"
+          f" the engine's state rows {runs['sharded']['state_rows']}; warm "
+          "host enqueue a step (median, ms): sharded "
+          + " / ".join(f"{enq[k]:.5f}" for k in warm["sharded"])
+          + ", serial " + " / ".join(f"{enq[k]:.5f}" for k in warm["serial"]))
+    require(same and runs["sharded"]["y"].shape == (STREAMS, canonical),
+            "the sharded main path differs from the serial engine")
+    require(all(r["launches"] == (190, 0, 0) for r in runs.values()),
+            f"launches {[r['launches'] for r in runs.values()]} (190 K1 "
+            "expected each)")
+    require(all(r["dtensors"] for k, r in runs.items() if "sharded" in k)
+            and runs["sharded"]["state_rows"] == STREAMS,
+            "sharded outputs are not DTensors sharded on rows")
+    del runs["sharded"]["y"], runs["serial"]["y"]
+    return {"x": x, "launches": runs["sharded"]["launches"][0],
+            "rate": max(STREAMS * n / runs[k]["wall"] / 1e6
+                        for k in warm["sharded"]),
+            "k1": k1_at_call("sharded main path step", k1_call)}
+
+
+def sharded_step_exact(card: str, mesh, x) -> dict:
+    """``sharded_stream_step``'s exact branch on 1024 streams: one K1
+    launch a step, the stream after the ramp within 2e-5 of ``oneshot``,
+    each step's peak (the MAX all-reduce) equal to max|y|."""
+    import torch
+    from go_audio_resampler_tpu_torch import (EngineCore, Quality, oneshot,
+                                              parallel, plan_engine)
+
+    plan = plan_engine(RATE_IN, RATE_OUT, Quality.HIGH)
+    init, step, blk = parallel.sharded_stream_step(plan, mesh, STREAMS,
+                                                   BLOCK)
+    require(blk == BLOCK, f"the step's block {blk}")
+    xs = x[:, :SHARD_STEPS * blk]
+    with k1_calls() as calls:               # the first collective's set-up
+        step(init(), xs[:, :blk])
+    state = init()
+    ys, peaks, ns = [], [], []
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(SHARD_STEPS):
+        state, y, n_out, peak = step(state, xs[:, i * blk:(i + 1) * blk])
+        ys.append(y)
+        peaks.append(peak)
+        ns.append(n_out)
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    sharded = all(is_row_sharded(y) for y in ys)
+    peaks_ok = all(float(p) == float(local(y).abs().max())
+                   for p, y in zip(peaks, ys))
+    got = torch.cat([local(y)[:, :k] for y, k in zip(ys, ns)], dim=1)
+    drop = EngineCore(plan, block=BLOCK, device="cpu")._drop_override
+    ref = oneshot(plan, xs)
+    m = min(ref.shape[1], got.shape[1] - drop)
+    err = (got[:, drop:drop + m] - ref[:, :m]).abs().max().item()
+    print(f"  sharded_stream_step (exact, K1): {SHARD_STEPS} steps of "
+          f"[{STREAMS}, {blk}] in {wall:.4f} s "
+          f"({enqueue / SHARD_STEPS * 1e3:.4f} ms of host enqueue a step), "
+          f"launches (K1, K2, K3) "
+          f"{launches}; after the ramp's {drop} outputs, {m} outputs within "
+          f"{err:.3g} of oneshot; peaks == max|y|: {peaks_ok}; outputs "
+          f"DTensors: {sharded} on {card}")
+    require(launches == (SHARD_STEPS, 0, 0), f"step launches {launches}")
+    require(m > 10 * blk and err <= ENGINE_TOL, f"step vs oneshot: {err}")
+    require(peaks_ok and sharded, "step peaks or outputs")
+    return {**k1_at_call("sharded step (exact)", calls[0]),
+            "launches": launches[0]}
+
+
+def sharded_walk(gen, card: str, mesh) -> dict:
+    """``sharded_stream_step``'s poly-walk branch, 44.1k -> 48.001k HIGH on
+    256 streams: one K1 launch (the prestage) a step, within 2e-5 of the
+    serial engine's walk after its transient."""
+    import torch
+    from go_audio_resampler_tpu_torch import (EngineCore, Quality, parallel,
+                                              plan_engine)
+
+    plan = plan_engine(RATE_IN, WALK_OUT, Quality.HIGH)
+    init, step, blk = parallel.sharded_stream_step(
+        plan, mesh, SHARD_WALK_STREAMS, WALK_BLOCK)
+    x = 0.5 * torch.randn((SHARD_WALK_STREAMS, SHARD_STEPS * blk),
+                          generator=gen, device="cuda")
+    state, outs = init(), []
+    reset_launches()
+    t0 = time.perf_counter()
+    with k1_calls() as calls:
+        for i in range(SHARD_STEPS):
+            state, y, n_out, peak = step(state, x[:, i * blk:(i + 1) * blk])
+            outs.append(local(y)[:, :n_out])
+    got = torch.cat(outs, dim=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    ref = EngineCore(plan, batch=SHARD_WALK_STREAMS, block=blk).process(
+        x.cpu().numpy())
+    got = got[:, plan.lengths.drop_prefix():].cpu().numpy()
+    m = min(got.shape[1], ref.shape[1])
+    err = float(np.abs(got[:, :m] - ref[:, :m]).max())
+    print(f"  sharded_stream_step (walk): {SHARD_STEPS} steps of "
+          f"[{SHARD_WALK_STREAMS}, {blk}] in {wall:.4f} s, launches (K1, "
+          f"K2, K3) {launches}; {m} outputs within {err:.3g} of the serial "
+          f"walk on {card}")
+    require(launches == (SHARD_STEPS, 0, 0), f"walk step launches {launches}")
+    require(m > 10 * blk and err <= ENGINE_TOL, f"walk step: {err}")
+    return {**k1_at_call("sharded walk step prestage", calls[0]),
+            "launches": launches[0]}
+
+
+def sharded_oneshots(gen, card: str, mesh) -> dict:
+    """``sharded_oneshot`` on 64 x 2 s, rational (K1) and general (K3):
+    equal to ``oneshot`` bit for bit, a ``DTensor`` sharded on rows.
+    Returns the rational call's K1 record and the general call's K3
+    record."""
+    import torch
+    from go_audio_resampler_tpu_torch import (Quality, oneshot, parallel,
+                                              plan_engine)
+
+    out = {}
+    for name, rate_out, want in (("rational", RATE_OUT, (1, 0, 0)),
+                                 ("general", WALK_OUT, (0, 0, 1))):
+        plan = plan_engine(RATE_IN, rate_out, Quality.HIGH)
+        x = 0.5 * torch.randn((ONESHOT_STREAMS, ONESHOT_SECONDS * RATE_IN),
+                              generator=gen, device="cuda")
+        reset_launches()
+        with k1_calls() as calls, k3_calls() as calls3:
+            y, wall, _ = timed(lambda: parallel.sharded_oneshot(plan, x,
+                                                                mesh))
+        launches = launch_counts()
+        ref = oneshot(plan, x)
+        same = torch.equal(local(y), ref)
+        print(f"  sharded_oneshot ({name}): {tuple(y.shape)} in {wall:.4f} s "
+              f"(host design included), launches (K1, K2, K3) {launches}; "
+              f"equal to oneshot bit for bit: {same}; DTensor sharded on "
+              f"rows: {is_row_sharded(y)} on {card}")
+        require(same and is_row_sharded(y) and launches == want,
+                f"sharded_oneshot {name}: {launches}, equal {same}")
+        if calls:
+            out["k1"] = {**k1_at_call("sharded one-shot 44.1k->48k",
+                                      calls[0]), "launches": launches[0]}
+        if calls3:
+            out["k3"] = {**k3_at_call("sharded one-shot 44.1k->48.001k",
+                                      calls3[0]), "launches": launches[2]}
+    return out
+
+
+def sharded_stats(card: str, mesh, x) -> None:
+    """``global_stream_stats`` against torch on the whole batch."""
+    import torch
+    from go_audio_resampler_tpu_torch import parallel
+    rms, peak = parallel.global_stream_stats(x, mesh)
+    want_rms = torch.sqrt((x.double() ** 2).mean()).item()
+    want_peak = x.abs().max().item()
+    err = abs(rms.item() - want_rms) / want_rms
+    print(f"  global_stream_stats: rms {rms.item():.7f} (torch in float64 "
+          f"{want_rms:.7f}, relative {err:.3g}), peak {peak.item():.7f} "
+          f"(torch {want_peak:.7f}) over {tuple(x.shape)} on {card}")
+    require(err <= 1e-5 and peak.item() == want_peak, "global_stream_stats")
+
+
+def sharded_vr(gen, card: str, mesh) -> dict:
+    """``ShardedVariableRateResampler`` beside the serial resampler, 'vr'
+    and 'vr-hq', 256 x 10.03 s through ``process_device`` with the
+    mid-stream slew: equal bit for bit, K1 launches as derived.  Returns
+    K1's record at the sharded 'vr-hq' prestage's shape."""
+    import torch
+    from go_audio_resampler_tpu_torch import VariableRateResampler, parallel
+
+    n = VR_BLOCKS * VR_BLOCK
+    x = 0.5 * torch.randn((VR_STREAMS, n), generator=gen, device="cuda")
+    out = {}
+    for quality in ("vr", "vr-hq"):
+        ys, counts = {}, {}
+        for name in ("serial", "sharded"):
+            kw = dict(block=VR_BLOCK, quality=quality)
+            vr = (parallel.ShardedVariableRateResampler(
+                VR_MAX, VR_RATIO, mesh=mesh, batch_per_device=VR_STREAMS,
+                **kw) if name == "sharded" else
+                VariableRateResampler(VR_MAX, VR_RATIO, batch=VR_STREAMS,
+                                      **kw))
+            reset_launches()
+            parts, sharded = [], True
+            with k1_calls() as calls:
+                for lo, hi in ((0, VR_MID * VR_BLOCK),
+                               (VR_MID * VR_BLOCK, n)):
+                    if lo:
+                        vr.set_io_ratio(VR_SLEW_TO, slew_len=VR_SLEW_LEN)
+                    for a in range(lo, hi, VR_CHUNK_BLOCKS * VR_BLOCK):
+                        b = min(hi, a + VR_CHUNK_BLOCKS * VR_BLOCK)
+                        y = vr.process_device(x[:, a:b])
+                        sharded &= name == "serial" or is_row_sharded(y)
+                        parts.append(local(y))
+                parts.append(local(vr.flush_device()))
+            ys[name] = torch.cat(parts, dim=1)
+            counts[name] = launch_counts()
+            require(sharded, f"sharded VR {quality}: outputs not DTensors")
+        want = vr_launches(vr, n)
+        same = torch.equal(ys["sharded"], ys["serial"])
+        print(f"  sharded VR {quality}: {tuple(ys['sharded'].shape)}, equal "
+              f"to the serial resampler bit for bit: {same}; launches (K1, "
+              f"K2, K3) {counts} (derived K1 {want}) on {card}")
+        require(same and all(c == (want, 0, 0) for c in counts.values()),
+                f"sharded VR {quality}: equal {same}, launches {counts}")
+        if quality == "vr-hq":
+            out = {**k1_at_call("sharded VR 'vr-hq' prestage", calls[0]),
+                   "launches": counts["sharded"][0]}
+    return out
+
+
+def cli_single(seed: int, card: str, tmp: pathlib.Path) -> dict:
+    """``resample_wav`` on a 5-minute stereo 24-bit file, 44.1k -> 48k
+    HIGH on the default device: rc 0, the canonical length, bit for bit
+    the port's ``EngineCore`` on the decoded input written and read the
+    same way, channel 0's THD; K1 at the CLI's step shape."""
+    import io
+    from go_audio_resampler_tpu_torch import EngineCore, Quality, plan_engine
+    from go_audio_resampler_tpu_torch.cli import resample_wav
+    from go_audio_resampler_tpu_torch.utils import metrics
+    from go_audio_resampler_tpu_torch.utils.wav import WavReader, WavWriter
+
+    n = CLI_SECONDS * RATE_IN
+    t = np.arange(n) / RATE_IN
+    noise = np.random.default_rng(seed).uniform(-1.0, 1.0, n)
+    sig = np.stack([0.5 * np.sin(2 * np.pi * 1000.0 * t), 0.25 * noise],
+                   axis=1).astype(np.float32)
+    src, dst, ref = tmp / "in.wav", tmp / "out.wav", tmp / "ref.wav"
+    with WavWriter(src, RATE_IN, 2, 24) as w:
+        w.write(sig)
+    reset_launches()
+    printed = io.StringIO()
+    with k1_calls() as calls, contextlib.redirect_stdout(printed):
+        t0 = time.perf_counter()
+        rc = resample_wav.run([str(src), str(dst)])
+        wall = time.perf_counter() - t0
+    launches = launch_counts()
+    print("  CLI: " + printed.getvalue().strip())
+    require(rc == 0, f"resample_wav exited {rc}")
+    plan = plan_engine(RATE_IN, RATE_OUT, Quality.HIGH)
+    with WavReader(src) as r:
+        decoded = r.read(n)
+    with WavReader(dst) as r:
+        fmt = (r.sample_rate, r.channels, r.bits, r.num_frames)
+        got = r.read(r.num_frames)
+    eng = EngineCore(plan, batch=2, block=8192)
+    reset_launches()
+    with WavWriter(ref, RATE_OUT, 2, 24) as w:
+        for y in eng.stream(np.ascontiguousarray(decoded[a:a + 65536].T)
+                            for a in range(0, n, 65536)):
+            w.write(y.T)
+    ref_launches = launch_counts()
+    with WavReader(ref) as r:
+        want = r.read(r.num_frames)
+    thd = metrics.thd(got[:, 0].astype(np.float64), RATE_OUT, 1000.0, 16384)
+    same = np.array_equal(got, want)
+    print(f"  CLI single file: {fmt} (rate, channels, bits, frames; "
+          f"canonical {plan.lengths.canonical(n)}); {CLI_SECONDS} s of audio "
+          f"in {wall:.3f} s = {CLI_SECONDS / wall:.1f}x realtime (WAV "
+          f"decode and encode included); launches (K1, K2, K3) {launches} "
+          f"(EngineCore.stream on the decoded input: {ref_launches}); equal "
+          f"to it bit for bit: {same}; channel 0 THD {thd:.2f} dB (floor "
+          f"{CLI_THD_DB}) on {card}")
+    require(fmt == (RATE_OUT, 2, 24, plan.lengths.canonical(n)),
+            f"CLI output {fmt}")
+    require(same and launches == ref_launches and launches[0] > 0,
+            f"CLI differs from EngineCore: equal {same}, launches "
+            f"{launches} against {ref_launches}")
+    require(thd <= CLI_THD_DB, f"CLI THD {thd} dB")
+    return {**k1_at_call("CLI 44.1k->48k, 2 streams", calls[0]),
+            "launches": launches[0]}
+
+
+def cli_batch(seed: int, card: str, tmp: pathlib.Path) -> dict:
+    """``resample_wav -outdir`` on 32 stereo files of 5-60 s: each output
+    (32-bit float) equal to ``oneshot`` of its own file bit for bit; K1
+    at the largest sub-batch's shape."""
+    import io
+    from go_audio_resampler_tpu_torch import Quality, oneshot, plan_engine
+    from go_audio_resampler_tpu_torch.cli import resample_wav
+    from go_audio_resampler_tpu_torch.utils.wav import WavReader, WavWriter
+
+    rng = np.random.default_rng(seed + 1)
+    lengths = rng.integers(5 * RATE_IN, 60 * RATE_IN + 1, CLI_FILES)
+    (tmp / "in").mkdir()
+    paths = []
+    for i, n in enumerate(lengths):
+        paths.append(tmp / "in" / f"f{i:02d}.wav")
+        t = np.arange(n) / RATE_IN
+        with WavWriter(paths[-1], RATE_IN, 2, 16) as w:
+            w.write(np.stack([0.5 * np.sin(2 * np.pi * 440.0 * (i + 1) * t),
+                              0.25 * rng.uniform(-1, 1, n)],
+                             axis=1).astype(np.float32))
+    reset_launches()
+    printed = io.StringIO()
+    with k1_calls() as calls, contextlib.redirect_stdout(printed):
+        t0 = time.perf_counter()
+        rc = resample_wav.run([str(p) for p in paths] + [
+            "-outdir", str(tmp / "out"), "-bits", "32f"])
+        wall = time.perf_counter() - t0
+    launches = launch_counts()
+    print("  CLI: " + printed.getvalue().strip())
+    require(rc == 0, f"resample_wav -outdir exited {rc}")
+    plan = plan_engine(RATE_IN, RATE_OUT, Quality.HIGH)
+    equal = 0
+    for p in paths:
+        with WavReader(p) as r:
+            x = r.read(r.num_frames)
+        with WavReader(tmp / "out" / p.name) as r:
+            got = r.read(r.num_frames)
+        want = oneshot(plan, np.ascontiguousarray(x.T)).cpu().numpy().T
+        equal += int(got.shape == want.shape and np.array_equal(got, want))
+    print(f"  CLI batch: {CLI_FILES} stereo files of {lengths.min()} to "
+          f"{lengths.max()} frames ({lengths.sum() / RATE_IN:.1f} s in "
+          f"all) in {wall:.3f} s, {calls.total} sub-batch(es), launches (K1, "
+          f"K2, K3) {launches}; outputs equal to oneshot of their own file "
+          f"bit for bit: {equal} of {CLI_FILES} on {card}")
+    require(equal == CLI_FILES and launches == (calls.total, 0, 0)
+            and calls, f"CLI batch: {equal} equal, launches {launches}")
+    big = max(calls, key=lambda c: c[0][0].numel())
+    return {**k1_at_call("CLI batch sub-batch", big),
+            "launches": launches[0]}
+
+
+def cli_phase(seed: int, card: str) -> dict:
+    """The CLI on the card: single file and batch mode, the other tools,
+    the native WAV library."""
+    import io
+    import tempfile
+    from go_audio_resampler_tpu_torch.cli import analyze_filter, resample_info
+    from go_audio_resampler_tpu_torch.utils import wav
+
+    lib = wav._load_native()
+    print(f"  native WAV library: {lib}")
+    require(lib is not None, "the native WAV library did not build or load")
+    with tempfile.TemporaryDirectory() as tmp:
+        records = {"cli_44k_48k": cli_single(seed, card, pathlib.Path(tmp))}
+    with tempfile.TemporaryDirectory() as tmp:
+        records["cli_batch"] = cli_batch(seed, card, pathlib.Path(tmp))
+    for tool, argv in ((resample_info, []),
+                       (analyze_filter, ["-phases", "8", "-taps", "16"])):
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = tool.run(argv)
+        lines = printed.getvalue().strip().splitlines()
+        print(f"  {tool.__name__.rsplit('.', 1)[-1]}: rc {rc}; "
+              + "; ".join(line.strip() for line in lines[:8]))
+        require(rc == 0, f"{tool.__name__} exited {rc}")
+    return records
+
+
+def quality_phase(card: str) -> tuple:
+    """The quality tool's full check set on the card; every check passes.
+    Returns its (K1, K2, K3) launches."""
+    from go_audio_resampler_tpu_torch.tools import quality_cuda
+    reset_launches()
+    t0 = time.perf_counter()
+    results = quality_cuda.run_checks("cuda")
+    launches = launch_counts()
+    print("  quality: " + json.dumps({
+        "card": card, "seconds": round(time.perf_counter() - t0, 1),
+        "launches": launches, "failures": results["failures"],
+        "checks": {k: v["value"] for k, v in results["checks"].items()}}))
+    require(not results["failures"] and len(results["checks"]) == len(
+        quality_cuda.LIMITS), f"quality checks failed: {results['failures']}")
+    require(launches[0] > 0 and launches[2] > 0, f"quality launches "
+            f"{launches}")
+    return launches
+
+
+def roofline_phase(card: str, rates: dict) -> None:
+    """``roofline.analyze`` of the main path's measured Msamples/s (the
+    serial and the sharded engine) at 'highest' on this card's peaks."""
+    import torch
+    from go_audio_resampler_tpu_torch import EngineCore, Quality, plan_engine
+    from go_audio_resampler_tpu_torch.utils import roofline
+
+    peaks = roofline.device_peaks()
+    eng = EngineCore(plan_engine(RATE_IN, RATE_OUT, Quality.HIGH),
+                     block=BLOCK, device="cpu")
+    r_t, ipx, wx, p2 = eng._band[:4]
+    model = roofline.banded_model(p2, wx, ipx,
+                                  nnz=int(torch.count_nonzero(r_t)))
+    print(f"  roofline: {peaks}; model {model}")
+    for label, rate in rates.items():
+        a = roofline.analyze(rate, model, "highest", peaks)
+        print(f"  roofline {label} ({rate:.1f} Msamples/s in): {a}")
+        require(all(0 <= a[k] <= 100 for k in ("mfu_pct", "mfu_slot_pct",
+                                               "hbm_pct")),
+                f"roofline {label}: a share over 100%: {a}")
+
+
+def phase14(gen, card: str, seed: int, main_rate: float, k1: dict,
+            k3: dict) -> dict:
+    """Phase 14: stream sharding at world size 1 on ``nccl``, the CLI,
+    the quality tool and the roofline.  Adds K1's and K3's records of
+    their shapes; returns the launches by path."""
+    import torch
+    import torch.distributed as dist
+    from go_audio_resampler_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    mesh = parallel.make_mesh(1)
+    print(f"  mesh: {mesh}, backend {dist.get_backend()}")
+    try:
+        main = sharded_main(gen, card, mesh)
+        step_k1 = sharded_step_exact(card, mesh, main["x"])
+        sharded_stats(card, mesh, main["x"])
+        del main["x"]
+        torch.cuda.empty_cache()
+        walk_k1 = sharded_walk(gen, card, mesh)
+        one = sharded_oneshots(gen, card, mesh)
+        vr = sharded_vr(gen, card, mesh)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    shapes = k1["shapes"]
+    shapes["sharded_main"] = {**main["k1"], "launches": main["launches"]}
+    shapes["sharded_step"] = step_k1
+    shapes["sharded_walk_prestage"] = walk_k1
+    shapes["sharded_oneshot_rational"] = one["k1"]
+    shapes["sharded_vr_prestage"] = vr
+    k3["shapes"]["sharded_oneshot_general"] = one["k3"]
+    print("CLI:")
+    shapes.update(cli_phase(seed, card))
+    print("quality tool:")
+    quality = quality_phase(card)
+    print("roofline:")
+    roofline_phase(card, {"main path": main_rate,
+                          "sharded main path": main["rate"]})
+    print(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
+    return {"sharded main path": main["launches"],
+            "sharded step": step_k1["launches"],
+            "sharded walk step": walk_k1["launches"],
+            "VR 'vr-hq'": vr["launches"],
+            "CLI": shapes["cli_44k_48k"]["launches"],
+            "CLI batch": shapes["cli_batch"]["launches"],
+            "quality tool (K1, K2, K3)": quality}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3729,6 +4341,7 @@ def main() -> int:
     print("main path:")
     main_run = main_path(gen, card)
     k1["launches"] = main_run["launches"]
+    main_rate = main_run["rate"]
     print("time-major path:")
     k2["launches"] = tmajor_path(main_run, card)
     print("precision tiers, engines and the dispatch gate:")
@@ -3802,6 +4415,11 @@ def main() -> int:
     print("  launches by path: K1 " + ", ".join(
         f"{rec['launches']} ({name})" for name, rec in shapes13.items())
           + "; K2 and K3 none")
+    torch.cuda.empty_cache()
+    print("sharding, the CLI, the quality tool and the roofline:")
+    launches14 = phase14(gen, card, args.seed, main_rate, k1, k3)
+    print("  launches by path: K1 " + ", ".join(
+        f"{count} ({name})" for name, count in launches14.items()))
     print("chunking:")
     chunking_phase(args.seed)
     if args.profile:

@@ -14,8 +14,15 @@ decimation filters past their crossovers run by FFT overlap-save
 (``engine/fftstage.py``, ``torch.fft``).  Beside them: the variable-rate
 resampler (``VariableRateResampler``, ``new_variable_rate``), checkpoint
 and resume of live streams (``engine.checkpoint``, in the JAX package's
-file format), the differentiable ``functional.resample``, and the
-python-soxr and torchaudio shims (``soxr_compat``, ``torch_compat``).
+file format), the differentiable ``functional.resample``, the
+python-soxr and torchaudio shims (``soxr_compat``, ``torch_compat``);
+stream sharding over ``torch.distributed`` (the subpackage ``parallel``:
+a ``DeviceMesh`` of one rank a card, ``DTensor`` outputs), the command-
+line tools (``cli``: ``resample_wav`` with WAV I/O from ``utils.wav``,
+``resample_info``, ``analyze_filter``), the Hopper roofline
+(``utils.roofline``) and the quality record of the card's output
+(``tools.quality_cuda``).  Not ported yet: the engines'
+``dispatch='tune'``.
 
 Every entry point runs on the card (``device='cuda'``) unless the caller
 passes ``device='cpu'``.

@@ -15,6 +15,7 @@ from .checkpoint import (save_stream_state, load_stream_state,
                          save_resampler_state, load_resampler_state,
                          save_vr_state, load_vr_state)
 from .variable import VariableRateResampler
+from .fftstage import fft_oneshot
 from .tmajor import TimeMajorEngine
 
 __all__ = [
@@ -22,5 +23,5 @@ __all__ = [
     "MIN_RATIO", "MAX_RATIO", "LengthModel", "oneshot", "EngineCore",
     "save_stream_state", "load_stream_state", "save_resampler_state",
     "load_resampler_state", "save_vr_state", "load_vr_state",
-    "VariableRateResampler", "TimeMajorEngine",
+    "VariableRateResampler", "fft_oneshot", "TimeMajorEngine",
 ]

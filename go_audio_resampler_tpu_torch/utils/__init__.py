@@ -1,4 +1,5 @@
-"""Utilities: test-signal synthesis and DSP quality metrics (numpy)."""
+"""Utilities: test-signal synthesis, DSP quality metrics (numpy), WAV I/O
+(``wav``) and the Hopper roofline (``roofline``)."""
 
 from . import metrics, signals
 

@@ -234,3 +234,21 @@ def test_package_exports():
                                                    "Quality"}
     for name in tar.__all__:
         assert getattr(tar, name) is not None, name
+    # The subpackages, each with the JAX namesake's exports: engine (the
+    # port adds plan_from_arrays, which its checkpoints use), parallel
+    # (imported as a subpackage, as in the JAX package), utils and cli.
+    import importlib
+    sub = {m: (importlib.import_module(f"go_audio_resampler_tpu.{m}"),
+               importlib.import_module(f"go_audio_resampler_tpu_torch.{m}"))
+           for m in ("engine", "parallel", "utils")}
+    jeng, teng = sub["engine"]
+    assert set(jeng.__all__) - set(teng.__all__) == set()
+    assert set(teng.__all__) - set(jeng.__all__) == {"plan_from_arrays"}
+    assert teng.fft_oneshot is not None
+    for m in ("parallel", "utils"):
+        assert sub[m][1].__all__ == sub[m][0].__all__, m
+    for name in ("analyze_filter", "resample_info", "resample_wav"):
+        assert callable(importlib.import_module(
+            f"go_audio_resampler_tpu_torch.cli.{name}").run)
+    for name in ("wav", "roofline"):
+        importlib.import_module(f"go_audio_resampler_tpu_torch.utils.{name}")

@@ -1163,3 +1163,70 @@ def test_shims_equal_the_oneshot_on_the_card(cuda):
     ys = soxr_compat.resample(frames, 96000, 44100)
     np.testing.assert_array_equal(ys, run_oneshot(
         plan, x[:2], device="cuda").cpu().numpy().T)
+
+
+@pytest.mark.cuda
+def test_sharded_engine_on_one_card_equals_serial(cuda):
+    """World size 1 on ``nccl``: the sharded engine launches what the
+    serial one launches on the same rows and gives its bits; the stream
+    step's peak is the MAX all-reduce of max|y|."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+    from go_audio_resampler_tpu_torch import parallel
+    mesh = parallel.make_mesh(1)
+    try:
+        plan = plan_engine(44100, 48000, Quality.HIGH)
+        sh = parallel.ShardedEngineCore(plan, mesh, batch_per_device=16,
+                                        block=2352)
+        ser = EngineCore(plan, batch=16, block=2352)
+        x = _data(16, 20 * 2352, cuda, 11)
+        before = fused.launches
+        ys = [sh.process_device(x[:, a:a + 2352])
+              for a in range(0, x.shape[1], 2352)] + [sh.flush_device()]
+        launched = fused.launches - before
+        yr = [ser.process_device(x[:, a:a + 2352])
+              for a in range(0, x.shape[1], 2352)] + [ser.flush_device()]
+        assert fused.launches - before == 2 * launched
+        assert all(isinstance(y, DTensor) and y.placements == (Shard(0),)
+                   for y in ys)
+        assert torch.equal(torch.cat([y.to_local() for y in ys], dim=1),
+                           torch.cat(yr, dim=1))
+        init, step, blk = parallel.sharded_stream_step(plan, mesh, 16, 2352)
+        state, y, n, peak = step(init(), x[:, :blk])
+        assert float(peak) == float(y.to_local().abs().max())
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cli_on_the_card_equals_engine(cuda, tmp_path):
+    """resample_wav on the card (float32, K1 through ``stream()``) writes
+    the port's ``EngineCore`` output, read back bit for bit (32f)."""
+    from go_audio_resampler_tpu_torch.cli import resample_wav
+    from go_audio_resampler_tpu_torch.utils.wav import WavReader, WavWriter
+    n = 3 * 65536 + 1234
+    x = np.random.default_rng(4).uniform(-0.5, 0.5, (n, 2)).astype(
+        np.float32)
+    w = WavWriter(tmp_path / "in.wav", 44100, 2, "32f")
+    w.write(x)
+    w.close()
+    before = fused.launches
+    assert resample_wav.run([str(tmp_path / "in.wav"),
+                             str(tmp_path / "out.wav"), "-bits", "32f"]) == 0
+    assert fused.launches > before
+    r = WavReader(tmp_path / "out.wav")
+    got = r.read(r.num_frames)
+    plan = plan_engine(44100, 48000, Quality.HIGH)
+    eng = EngineCore(plan, batch=2, block=8192)
+    want = np.concatenate(list(eng.stream(
+        [x[a:a + 65536].T.copy() for a in range(0, n, 65536)])), axis=1).T
+    assert got.shape == (plan.lengths.canonical(n), 2)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_device_peaks_knows_the_card(cuda):
+    from go_audio_resampler_tpu_torch.utils import roofline
+    p = roofline.device_peaks()
+    assert p["kind"] == torch.cuda.get_device_name(0)
+    assert p["bf16_tflops"] > 0 and p["power_limit"]
