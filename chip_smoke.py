@@ -190,11 +190,36 @@ is printed):
    Roofline. ``roofline.analyze`` of the main path's and the sharded
       engine's Msamples/s at 'highest' against this card's peaks (the
       card must be known; every share <= 100%).
+15. The lowering selection, with ``GAR_TUNE_CACHE_FILE`` in a fresh
+   temporary directory.
+   ``dispatch='tune'`` at three shapes: the main path (1024 x 2352), the
+      decimation path (256 x 3072) and the CLI's engine (2 x 8192); each
+      engine's pin, ``contrast_s``, ``jitter_s``, each lowering's
+      marginal ms a step, the tune's wall time and its graphs captured.
+      Gates: where one lowering's ``graph_ms`` of the step is 2x or more
+      the other's, the pin is the faster; the stream of each tuned engine
+      (``process_device``, 20 blocks) equals bit for bit that of an
+      engine built with ``dispatch=<pin>``, with the same K1 launches
+      (none for 'xla'); a second engine of the same key hits the cache
+      (0 graphs, its build time printed); a tune that refused ('auto')
+      wrote no cache entry.
+   Entry points: ``TimeMajorEngine(dispatch='tune')`` at the main shape
+      (its pin, and K2 against its plain version at its step);
+      ``Config(dispatch='tune')`` at 256 channels, equal bit for bit to
+      the pinned config; the CLI's ``-dispatch tune`` on phase 14's
+      5-minute stereo file, equal bit for bit to ``-dispatch <pin>``;
+      ``ShardedEngineCore`` at world size 1 (``nccl``): its pin.
+   ``set_conv_impl`` at the walk prestage's shape ([256, 2213] x [293,
+      256]) with cuDNN's TF32 at its default (on): None and 'banded'
+      launch K1, 'frames' and 'xla' none, each within 2e-5 of max|y| of
+      K1's output ('xla' turns TF32 off), each lowering's graph_ms; the
+      override None and TF32 as it was afterwards.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after; launches made to compare a kernel with its plain version
 are not counted.  The phases run in the order 1, 2, 8 (kernels and
-one-shot), 3, 4, 8 (engines and gate), 5, 6, 9, 10, 11, 12, 13, 14, 7.
+one-shot), 3, 4, 8 (engines and gate), 5, 6, 9, 10, 11, 12, 13, 14, 15,
+7.
 Phase 14's records time each kernel at the shape its path really gave
 it (its first launch there, recorded by a spy).  The last three
 lines are the card, the kernels as JSON, and ``{"ok": true, "device":
@@ -4061,6 +4086,20 @@ def sharded_vr(gen, card: str, mesh) -> dict:
     return out
 
 
+def cli_input(seed: int, path: pathlib.Path) -> pathlib.Path:
+    """The CLI's input: a 5-minute stereo 24-bit 44.1 kHz file, a 1 kHz
+    tone and noise from ``seed``, written to ``path``."""
+    from go_audio_resampler_tpu_torch.utils.wav import WavWriter
+    n = CLI_SECONDS * RATE_IN
+    t = np.arange(n) / RATE_IN
+    noise = np.random.default_rng(seed).uniform(-1.0, 1.0, n)
+    sig = np.stack([0.5 * np.sin(2 * np.pi * 1000.0 * t), 0.25 * noise],
+                   axis=1).astype(np.float32)
+    with WavWriter(path, RATE_IN, 2, 24) as w:
+        w.write(sig)
+    return path
+
+
 def cli_single(seed: int, card: str, tmp: pathlib.Path) -> dict:
     """``resample_wav`` on a 5-minute stereo 24-bit file, 44.1k -> 48k
     HIGH on the default device: rc 0, the canonical length, bit for bit
@@ -4073,13 +4112,8 @@ def cli_single(seed: int, card: str, tmp: pathlib.Path) -> dict:
     from go_audio_resampler_tpu_torch.utils.wav import WavReader, WavWriter
 
     n = CLI_SECONDS * RATE_IN
-    t = np.arange(n) / RATE_IN
-    noise = np.random.default_rng(seed).uniform(-1.0, 1.0, n)
-    sig = np.stack([0.5 * np.sin(2 * np.pi * 1000.0 * t), 0.25 * noise],
-                   axis=1).astype(np.float32)
-    src, dst, ref = tmp / "in.wav", tmp / "out.wav", tmp / "ref.wav"
-    with WavWriter(src, RATE_IN, 2, 24) as w:
-        w.write(sig)
+    src, dst, ref = cli_input(seed, tmp / "in.wav"), tmp / "out.wav", \
+        tmp / "ref.wav"
     reset_launches()
     printed = io.StringIO()
     with k1_calls() as calls, contextlib.redirect_stdout(printed):
@@ -4290,6 +4324,375 @@ def phase14(gen, card: str, seed: int, main_rate: float, k1: dict,
             "quality tool (K1, K2, K3)": quality}
 
 
+# -- the lowering selection: dispatch='tune' and set_conv_impl (phase 15) -----
+
+#: The tuned engines: (label, rate in, rate out, streams, block asked for).
+#: The main path; the decimation path (block 2048 rounds to 3072); the
+#: CLI's engine (cli/resample_wav.py: 2 channels, block 8192).
+TUNE_SHAPES = (("main", RATE_IN, RATE_OUT, STREAMS, BLOCK),
+               ("decimation", DECIM_IN, DECIM_OUT, DECIM_STREAMS, 2048),
+               ("CLI", RATE_IN, RATE_OUT, 2, 8192))
+#: Blocks each tuned engine and its pinned twin stream for the bit gate.
+TUNE_BLOCKS = 20
+#: A lowering this many times faster than the other must be the pin.
+TUNE_GATE_RATIO = 2.0
+
+
+@contextlib.contextmanager
+def tune_cache(path: pathlib.Path):
+    """``GAR_TUNE_CACHE_FILE`` set to ``path`` inside the block."""
+    import os
+    saved = os.environ.get("GAR_TUNE_CACHE_FILE")
+    os.environ["GAR_TUNE_CACHE_FILE"] = str(path)
+    try:
+        yield path
+    finally:
+        if saved is None:
+            del os.environ["GAR_TUNE_CACHE_FILE"]
+        else:
+            os.environ["GAR_TUNE_CACHE_FILE"] = saved
+
+
+def built(make):
+    """(``make()``, the seconds it took)."""
+    t0 = time.perf_counter()
+    obj = make()
+    return obj, time.perf_counter() - t0
+
+
+def tune_line(label: str, eng, wall: float, card: str) -> None:
+    rec = eng.tune_record
+    marg = rec.get("marginal_ms") or {}
+    print(f"  tune {label} ({eng.batch} x {eng.block}): pin "
+          f"{eng.dispatch!r} ({rec['source']}); contrast_s "
+          f"{rec.get('contrast_s')}, jitter_s {rec.get('jitter_s')}; "
+          "marginal ms a step: " + ", ".join(
+              f"{m} {v:.5f}" for m, v in marg.items())
+          + f"; tune {rec.get('seconds', 0.0):.4f} s, engine built in "
+          f"{wall:.4f} s; {rec['graphs']} graphs captured; on {card}")
+
+
+def lowering_ms(eng, x) -> dict:
+    """Each lowering's device ms of one step of ``eng`` on ``x`` from its
+    zero state (``graph_ms``)."""
+    out, saved = {}, eng.dispatch
+    for mode in ("pallas", "xla"):
+        eng.dispatch = mode
+        core = eng.core_fn()
+        eng.dispatch = saved
+        state = eng._init_state()
+        out[mode] = graph_ms(lambda: core(state, x), reps=10, iters=10)
+    return out
+
+
+def pin_gate(label: str, eng, x, card: str) -> dict:
+    """Gate: where one lowering is TUNE_GATE_RATIO or more faster than
+    the other (``graph_ms`` in this run), the pin is that one."""
+    ms = lowering_ms(eng, x)
+    fast, slow = sorted(ms, key=ms.get)
+    ratio = ms[slow] / ms[fast]
+    decided = ratio >= TUNE_GATE_RATIO
+    print(f"  tune {label}: graph_ms a step: pallas {ms['pallas']:.5f}, xla "
+          f"{ms['xla']:.5f}; {fast!r} {ratio:.2f}x faster; "
+          + (f"the pin must be {fast!r}: {eng.dispatch!r}" if decided else
+             f"under {TUNE_GATE_RATIO}x, any pin passes: {eng.dispatch!r}")
+          + f" on {card}")
+    require(not decided or eng.dispatch == fast,
+            f"tune {label}: pinned {eng.dispatch!r}, but {fast!r} is "
+            f"{ratio:.2f}x faster")
+    return ms
+
+
+def device_stream(eng, x) -> tuple:
+    """``eng.process_device`` over ``x`` a block at a time, then
+    ``flush_device``: (output, K1 launches)."""
+    import torch
+    reset_launches()
+    outs = [eng.process_device(x[:, a:a + eng.block])
+            for a in range(0, x.shape[1], eng.block)]
+    outs.append(eng.flush_device())
+    torch.cuda.synchronize()
+    return torch.cat(outs, dim=1), launch_counts()[0]
+
+
+def tuned_engines(gen, card: str, cache: pathlib.Path) -> dict:
+    """The tune at TUNE_SHAPES, each gated against graph_ms and its
+    pinned twin's stream; the cache hit; the noise case."""
+    import torch
+    from go_audio_resampler_tpu_torch import EngineCore, Quality, plan_engine
+    from go_audio_resampler_tpu_torch.engine import streaming
+
+    engines = {}
+    for label, rin, rout, streams, block in TUNE_SHAPES:
+        plan = plan_engine(rin, rout, Quality.HIGH)
+        eng, wall = built(lambda: EngineCore(plan, batch=streams,
+                                             block=block, dispatch="tune"))
+        tune_line(label, eng, wall, card)
+        require(eng.dispatch in ("pallas", "xla", "auto")
+                and eng.tune_record["source"] == "measured"
+                and eng.tune_record["graphs"] == 4,
+                f"tune {label}: {eng.dispatch!r}, {eng.tune_record}")
+        x = 0.5 * torch.randn((streams, TUNE_BLOCKS * eng.block),
+                              generator=gen, device="cuda")
+        pin_gate(label, eng, x[:, :eng.block], card)
+        twin = EngineCore(plan, batch=streams, block=block,
+                          dispatch=eng.dispatch)
+        got, launches = device_stream(eng, x)
+        want, twin_launches = device_stream(twin, x)
+        same = torch.equal(got, want)
+        print(f"  tune {label}: process_device stream {tuple(got.shape)} "
+              f"equal bit for bit to dispatch={eng.dispatch!r}: {same}; K1 "
+              f"launches {launches} (the pinned engine's {twin_launches})")
+        require(same and launches == twin_launches
+                and (launches > 0) == (eng.dispatch != "xla"),
+                f"tune {label}: equal {same}, launches {launches} against "
+                f"{twin_launches}")
+        engines[label] = (plan, eng, launches)
+    pinned = [lab for lab, (_, e, _) in engines.items() if e.dispatch != "auto"]
+    require(pinned, "no tuned shape pinned a lowering")
+    plan, first, _ = engines[pinned[0]]
+    second, wall = built(lambda: EngineCore(plan, batch=first.batch,
+                                            block=first.block,
+                                            dispatch="tune"))
+    print(f"  tune cache hit ({pinned[0]}): pin {second.dispatch!r} "
+          f"({second.tune_record['source']}), {second.tune_record['graphs']} "
+          f"graphs captured, engine built in {wall * 1e3:.3f} ms on {card}")
+    require(second.tune_record["source"] == "cache"
+            and second.tune_record["graphs"] == 0
+            and second.dispatch == first.dispatch,
+            f"second engine: {second.tune_record}")
+    refused = [e for _, e, _ in engines.values() if e.dispatch == "auto"]
+    if not refused:
+        noise, wall = built(lambda: EngineCore(
+            plan_engine(RATE_IN, RATE_OUT, Quality.HIGH), batch=1, block=512,
+            dispatch="tune"))
+        tune_line("noise case (1 x 512)", noise, wall, card)
+        refused = [noise] if noise.dispatch == "auto" else []
+    for eng in refused:
+        entry = streaming._tune_cache_get(eng._tune_key())
+        print(f"  tune noise case ({eng.batch} x {eng.block}): pin 'auto', "
+              f"cache entry for its key: {entry}")
+        require(entry is None, f"a refused tune wrote {entry}")
+    if not refused:
+        print("  tune noise case: the 1 x 512 engine pinned too; nothing "
+              "refused, so nothing to check")
+    entries = json.loads(cache.read_text())
+    print(f"  tune cache {cache.name}: {len(entries)} entries, "
+          + "; ".join(f"{v}" for v in entries.values()))
+    return engines
+
+
+def tuned_tmajor(gen, card: str, pin: str) -> dict:
+    """``TimeMajorEngine(dispatch='tune')`` at the main shape: the pin of
+    its inner EngineCore, and K2 against its plain version at its step."""
+    import torch
+    from go_audio_resampler_tpu_torch import (Quality, TimeMajorEngine,
+                                              plan_engine)
+    from go_audio_resampler_tpu_torch.ops import tmajor
+
+    tm, wall = built(lambda: TimeMajorEngine(
+        plan_engine(RATE_IN, RATE_OUT, Quality.HIGH), batch=STREAMS,
+        block=BLOCK, dispatch="tune"))
+    # The main EngineCore's pin is in the cache under the same key, unless
+    # it refused (then the inner engine measures anew).
+    require(pin == "auto" or tm.dispatch == pin,
+            f"TimeMajorEngine pinned {tm.dispatch!r}, EngineCore {pin!r}")
+    data = 0.5 * torch.randn((tm._carry_len + tm.block, STREAMS),
+                             generator=gen, device="cuda")
+    kw = dict(ipx=tm._ipx, wx=tm._wx, p2=tm._p2,
+              n_frames=tm.block // tm._ipx, tier="highest")
+    reset_launches()
+    y = tmajor.fused_resample_tmajor(data, tm._r, op=tm._op, **kw)
+    launches = launch_counts()[1]
+    ref = tmajor.fused_resample_tmajor_reference(data, tm._r, **kw)
+    torch.cuda.synchronize()
+    err = (y - ref).abs().max().item() / ref.abs().max().item()
+    ms = graph_ms(lambda: tmajor.fused_resample_tmajor(data, tm._r,
+                                                       op=tm._op, **kw))
+    plain_ms = graph_ms(lambda: tmajor.fused_resample_tmajor_reference(
+        data, tm._r, **kw), reps=5, iters=5)
+    print(f"  tune TimeMajorEngine (main, {STREAMS} x {tm.block}): pin "
+          f"{tm.dispatch!r} (its inner EngineCore's, measured on K1), built "
+          f"in {wall:.4f} s; K2 at its step {tuple(data.shape)}: kernel "
+          f"{ms:.5f} ms, plain {plain_ms:.5f} ms, max |kernel - plain| = "
+          f"{err:.3g} of max|y| on {card}")
+    require(launches == 1 and err <= KERNEL_TOL,
+            f"K2 at the tuned step: launches {launches}, error {err}")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "launches": launches, "pin": tm.dispatch}
+
+
+def tuned_entry_points(gen, seed: int, card: str,
+                       tmp: pathlib.Path) -> None:
+    """``Config(dispatch='tune')`` at 256 channels, the CLI's ``-dispatch
+    tune`` and ``ShardedEngineCore`` at world size 1, each into a fresh
+    cache so that each measures."""
+    import torch
+    import torch.distributed as dist
+    from go_audio_resampler_tpu_torch import Quality, parallel, plan_engine
+    from go_audio_resampler_tpu_torch.cli import resample_wav
+
+    with tune_cache(tmp / "api.json"):
+        r, wall = built(lambda: api_resampler(RATE_IN, RATE_OUT, 3,
+                                              dispatch="tune"))
+    pins = [e.dispatch for e in r._exec]
+    require(len(set(pins)) == 1, f"API engines pinned {pins}")
+    ref = api_resampler(RATE_IN, RATE_OUT, 3, dispatch=pins[0])
+    mult = r.device_chunk_multiple
+    x = 0.5 * torch.randn((API_CHANNELS, 40 * mult), generator=gen,
+                          device="cuda")
+    got = torch.cat([r.process_multi_device(x), r.flush_multi_device()], 1)
+    want = torch.cat([ref.process_multi_device(x),
+                      ref.flush_multi_device()], 1)
+    same = torch.equal(got, want)
+    rec = r._exec[0].tune_record
+    print(f"  tune Resampler ({API_CHANNELS} channels, block "
+          f"{r._exec[0].block}): pins {pins} ({rec['source']}, contrast_s "
+          f"{rec.get('contrast_s')}, jitter_s {rec.get('jitter_s')}), built "
+          f"in {wall:.4f} s; output {tuple(got.shape)} equal bit for bit to "
+          f"Config(dispatch={pins[0]!r}): {same} on {card}")
+    require(same, "the tuned Resampler differs from its pinned config")
+
+    src = cli_input(seed, tmp / "in.wav")
+    with tune_cache(tmp / "cli.json") as cache:
+        t0 = time.perf_counter()
+        rc = resample_wav.run([str(src), str(tmp / "tune.wav"),
+                               "-dispatch", "tune"])
+        wall = time.perf_counter() - t0
+        entries = (json.loads(cache.read_text()) if cache.exists() else {})
+    require(rc == 0 and len(entries) <= 1, f"CLI -dispatch tune: rc {rc}, "
+            f"cache {entries}")
+    pin = next(iter(entries.values()))["winner"] if entries else "auto"
+    rc_pin = resample_wav.run([str(src), str(tmp / "pin.wav"), "-dispatch",
+                               pin])
+    outs = {k: (tmp / f"{k}.wav").read_bytes() for k in ("tune", "pin")}
+    same = outs["tune"] == outs["pin"]
+    print(f"  tune CLI ({CLI_SECONDS} s stereo): -dispatch tune rc {rc} in "
+          f"{wall:.3f} s, pin {pin!r} (its cache: {entries}); -dispatch "
+          f"{pin} rc {rc_pin}; outputs equal bit for bit: {same} "
+          f"({len(outs['tune'])} bytes) on {card}")
+    require(rc_pin == 0 and same, "CLI -dispatch tune differs from its pin")
+
+    mesh = parallel.make_mesh(1)
+    try:
+        with tune_cache(tmp / "sharded.json"):
+            eng, wall = built(lambda: parallel.ShardedEngineCore(
+                plan_engine(RATE_IN, RATE_OUT, Quality.HIGH), mesh,
+                batch_per_device=STREAMS, block=BLOCK, dispatch="tune"))
+        tune_line("ShardedEngineCore (world size 1, main)", eng, wall, card)
+        require(eng.dispatch in ("pallas", "xla", "auto")
+                and eng.tune_record["pin"] == eng.dispatch,
+                f"sharded tune: {eng.dispatch!r}, {eng.tune_record}")
+    finally:
+        dist.destroy_process_group()
+
+
+def conv_impls(gen, card: str) -> dict:
+    """``set_conv_impl`` at the walk prestage's shape ([256, 2213] x
+    [293, 256]): None and 'banded' launch K1, 'frames' and 'xla' none;
+    each within 2e-5 of max|y| of K1's output with cuDNN's TF32 left at
+    its default (on) around the calls, so 'xla' passes only with TF32
+    off inside it; each lowering's graph_ms; the override None after.
+    Returns K1's record at this shape."""
+    import torch
+    import torch.nn.functional as F
+    from go_audio_resampler_tpu_torch import EngineCore, Quality, plan_engine
+    from go_audio_resampler_tpu_torch.ops import convolve
+
+    eng = EngineCore(plan_engine(RATE_IN, WALK_OUT, Quality.HIGH),
+                     batch=WALK_STREAMS, block=WALK_BLOCK)
+    band, coeffs = eng._pre_band(WALK_BLOCK), eng.pre_coeffs
+    xext = 0.5 * torch.randn((WALK_STREAMS, coeffs.shape[1] - 1 + WALK_BLOCK),
+                             generator=gen, device="cuda")
+    require((tuple(xext.shape), tuple(band.r_t.shape))
+            == ((256, 2213), (293, 256)),
+            f"prestage shape {tuple(xext.shape)} x {tuple(band.r_t.shape)}")
+
+    def conv():
+        return convolve.conv1d_poly_interleaved(xext, coeffs, "highest",
+                                                band=band)
+
+    real_conv1d, tf32_inside = F.conv1d, []
+
+    def conv1d_spy(*args, **kw):
+        tf32_inside.append(torch.backends.cudnn.allow_tf32)
+        return real_conv1d(*args, **kw)
+
+    saved_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True         # cuDNN's default
+    outs, k1_launches = {}, 0
+    try:
+        for impl in (None, "banded", "frames", "xla"):
+            convolve.set_conv_impl(impl)
+            reset_launches()
+            F.conv1d = conv1d_spy
+            try:
+                y = conv()
+            finally:
+                F.conv1d = real_conv1d
+            torch.cuda.synchronize()
+            launched = launch_counts()[0]
+            k1_launches += launched
+            ms = graph_ms(conv, reps=10, iters=10)
+            outs[impl] = (y, launched, ms)
+        convolve.set_conv_impl(None)
+        tf32_kept = torch.backends.cudnn.allow_tf32
+        tf32_conv = F.conv1d(xext[:, None, :], coeffs[:, None, :]).transpose(
+            1, 2).reshape(xext.shape[0], -1)
+    finally:
+        convolve.set_conv_impl(None)
+        torch.backends.cudnn.allow_tf32 = saved_tf32
+    ref = outs[None][0]
+    peak = ref.abs().max().item()
+    tf32_err = (tf32_conv - ref).abs().max().item() / peak
+    for impl, (y, launched, ms) in outs.items():
+        err = (y - ref).abs().max().item() / peak
+        print(f"  set_conv_impl({impl!r}) at {tuple(xext.shape)} x "
+              f"{tuple(band.r_t.shape)}: {launched} K1 launches, max |y - "
+              f"K1's| = {err:.3g} of max|y|, graph_ms {ms:.5f} on {card}")
+        require(launched == (1 if impl in (None, "banded") else 0)
+                and err <= KERNEL_TOL, f"set_conv_impl({impl!r}): "
+                f"{launched} launches, error {err}")
+    print(f"  F.conv1d with cuDNN's TF32 on (its default) at this shape: "
+          f"{tf32_err:.3g} of max|y|; cuDNN's allow_tf32 inside the 'xla' "
+          f"lowering's F.conv1d calls: {tf32_inside}, after them: "
+          f"{tf32_kept}; the override after the phase: "
+          f"{convolve._IMPL_OVERRIDE}")
+    require(tf32_inside == [False] and tf32_kept
+            and convolve._IMPL_OVERRIDE is None,
+            f"set_conv_impl: TF32 inside {tf32_inside}, after {tf32_kept}, "
+            f"override {convolve._IMPL_OVERRIDE}")
+    rec = prestage_k1("conv impl prestage", band, coeffs, xext)
+    return {**rec, "launches": k1_launches,
+            "impl_ms": {str(k): v[2] for k, v in outs.items()}}
+
+
+def phase15(gen, seed: int, card: str, k1: dict, k2: dict) -> dict:
+    """Phase 15: ``dispatch='tune'`` at three shapes and through every
+    entry point, and ``set_conv_impl``; the tune cache in a fresh
+    temporary directory.  Adds K1's and K2's records; returns the
+    launches by path."""
+    import tempfile
+    import torch
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        with tune_cache(tmp / "tune.json") as cache:
+            engines = tuned_engines(gen, card, cache)
+            torch.cuda.empty_cache()
+            tm = tuned_tmajor(gen, card, engines["main"][1].dispatch)
+        torch.cuda.empty_cache()
+        tuned_entry_points(gen, seed, card, tmp)
+    torch.cuda.empty_cache()
+    conv = conv_impls(gen, card)
+    k1["shapes"]["conv_impl_prestage"] = conv
+    k2["shapes"]["tune_tmajor_main"] = tm
+    print(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
+    return {**{f"tuned {lab} stream": n for lab, (_, _, n) in
+               engines.items()}, "set_conv_impl": conv["launches"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4420,6 +4823,10 @@ def main() -> int:
     launches14 = phase14(gen, card, args.seed, main_rate, k1, k3)
     print("  launches by path: K1 " + ", ".join(
         f"{count} ({name})" for name, count in launches14.items()))
+    print("dispatch='tune' and set_conv_impl:")
+    launches15 = phase15(gen, args.seed, card, k1, k2)
+    print("  launches by path: K1 " + ", ".join(
+        f"{count} ({name})" for name, count in launches15.items()))
     print("chunking:")
     chunking_phase(args.seed)
     if args.profile:

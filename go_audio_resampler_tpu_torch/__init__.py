@@ -21,8 +21,9 @@ a ``DeviceMesh`` of one rank a card, ``DTensor`` outputs), the command-
 line tools (``cli``: ``resample_wav`` with WAV I/O from ``utils.wav``,
 ``resample_info``, ``analyze_filter``), the Hopper roofline
 (``utils.roofline``) and the quality record of the card's output
-(``tools.quality_cuda``).  Not ported yet: the engines'
-``dispatch='tune'``.
+(``tools.quality_cuda``), and the lowering selection: the engines'
+``dispatch='tune'`` (timed on CUDA graphs), ``EngineCore.core_fn`` and
+``ops.set_conv_impl``.
 
 Every entry point runs on the card (``device='cuda'``) unless the caller
 passes ``device='cpu'``.

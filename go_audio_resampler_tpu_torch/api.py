@@ -176,7 +176,8 @@ class Config:
     strict_antialias: bool | None = None
     # Extension: the lowering of each engine's fused banded steps —
     # 'auto' and 'pallas' (the card's kernel), 'xla' (its plain PyTorch
-    # version), or 'tune' (not ported: the engines raise).
+    # version), or 'tune' (each engine times both on the card when it is
+    # built and pins the faster; 'auto' off the card).
     dispatch: str = 'auto'
     # Extension: the matmul precision tier of each engine — 'auto'
     # (process-global GAR_TPU_MATMUL_PRECISION), 'highest' (float32-

@@ -93,7 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "pallas", "xla", "tune"],
                    help="banded-step lowering: auto (default) or pallas "
                         "(the CUDA kernel on the card), xla (its plain "
-                        "PyTorch version); tune is not ported and fails")
+                        "PyTorch version), or tune (time both on the card "
+                        "when the engine is built and pin the faster; "
+                        "cached in $GAR_TUNE_CACHE_FILE)")
     p.add_argument("-precision", default="auto",
                    choices=["auto", "highest", "high", "default"],
                    help="matmul tier for the serving steps: auto "
@@ -205,14 +207,8 @@ def run(argv=None) -> int:
     from ..api import QualityPreset, default_dtype
     from ..convenience import preset_to_engine_quality
     from ..engine import EngineCore, plan_engine
-    from ..engine.streaming import _check_knobs
     from ..utils.wav import WavReader, WavWriter
 
-    try:
-        _check_knobs(args.dispatch, args.precision)
-    except NotImplementedError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 1
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: CUDA is not available; pass -device cpu to run on "
               "the CPU", file=sys.stderr)

@@ -38,7 +38,12 @@ resolved once when it is built; ``ops/precision.py``) and routes each
 fused banded step through the dispatch gate (``dispatch``): the kernel,
 or its plain version.  The prestage follows the gate at the tier, as the
 JAX package's does, and takes K1's plain version inside
-``precision.force_xla``.
+``precision.force_xla``.  ``dispatch='tune'`` measures both lowerings of
+the engine's fused banded step on the card when the engine is built and
+pins the faster (:meth:`EngineCore._tune_dispatch`): each lowering's
+chain of steps is captured in CUDA graphs and timed by the slope between
+two chain depths (:func:`_slope_measure`), and winners persist in a JSON
+cache (``GAR_TUNE_CACHE_FILE``).
 
 Flush follows the reference's orchestration (resampler.go:275-322) via
 the length model: the engine feeds the zero padding that drains every
@@ -47,12 +52,17 @@ stage, then trims the total stream to the canonical output count.
 
 from __future__ import annotations
 
+import functools
+import json
+import os
+import subprocess
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..ops import banded, convolve, fused
+from ..ops import _build, banded, convolve, fused
 from ..ops.precision import (DISPATCH_MODES, PRECISION_MODES, dispatch_for,
                              dot_precision)
 from ..pipeline.buffer import SampleFIFO
@@ -66,20 +76,14 @@ from .stages import CubicState, PolyState, PrestageState
 #: cap stays below 2^15, so that j * (a 16-bit limb) stays below 2^31.
 CAP_LIMIT = 32767
 
-#: The JAX engine's measured choice of lowering, not ported yet.
-_TUNE = ("dispatch='tune' is not ported yet (ROADMAP.md, queue 1: "
-         "\"dispatch='tune'\")")
-
 
 def _check_knobs(dispatch: str, precision: str) -> str:
     """``dispatch`` and ``precision`` checked as the JAX engine checks
     them; returns the engine's tier (:func:`dot_precision` of
     ``precision``, 'auto' read from the process-wide tier now)."""
-    if dispatch == 'tune':
-        raise NotImplementedError(_TUNE)
-    if dispatch not in DISPATCH_MODES:
-        raise ValueError(f"dispatch must be one of {DISPATCH_MODES}, got "
-                         f"{dispatch!r}")
+    if dispatch not in DISPATCH_MODES + ('tune',):
+        raise ValueError(f"dispatch must be one of "
+                         f"{DISPATCH_MODES + ('tune',)}, got {dispatch!r}")
     if precision not in PRECISION_MODES:
         raise ValueError(f"precision must be one of {PRECISION_MODES}, got "
                          f"{precision!r}")
@@ -151,6 +155,19 @@ def _fused_banded_step(r_t, carry, x, ipx, wx, p2, op=None,
     return data[:, b:].contiguous(), y, n_frames * p2
 
 
+def _blockwise(block_step, block: int):
+    """A walk's step over ``x`` of any width: ``block_step`` on each
+    ``block`` samples in turn, the outputs concatenated."""
+    def step(state, x):
+        ys, n = [], 0
+        for a in range(0, x.shape[1], block):
+            state, y, k = block_step(state, x[:, a:a + block])
+            ys.append(y[:, :k])
+            n += k
+        return state, (torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]), n
+    return step
+
+
 def _fir_fft_step(spec: fftstage.Spectrum, carry: torch.Tensor,
                   x: torch.Tensor):
     """Causal streaming FIR via FFT overlap-save (long prototypes).
@@ -179,6 +196,213 @@ def _fft_decim_step(spec: fftstage.Spectrum, factor: int, carry, x):
     data = torch.cat([carry.to(x.dtype), x], dim=1)
     f = fftstage.fft_correlate(data, spec, (n_frames - 1) * factor + 1)
     return data[:, b:].contiguous(), f[:, ::factor][:, :n_frames], n_frames
+
+
+def _slope_measure(fns: dict, depths: tuple, iters: int = 5,
+                   timer=None) -> tuple:
+    """Measure marginal (depth-slope) times per variant, with a jitter floor.
+
+    ``fns[name](n)`` runs a synchronized chain of ``n`` steps; the score
+    per variant is ``min_t(depths[1]) - min_t(depths[0])`` — the marginal
+    cost of ``depths[1]-depths[0]`` steps, with the fixed per-call
+    latency cancelled.  All (variant, depth) combinations are
+    interleaved within each iteration so clock drift hits every cell
+    equally; minima over iterations resist one-sided jitter.  ``timer``
+    is injectable for tests.
+
+    Returns ``(winner, contrast, jitter)``: ``contrast`` is the marginal
+    gap between the best and second-best variant; ``jitter`` estimates
+    the measurement noise floor of that gap — per timing cell, the gap
+    between the two smallest samples bounds how settled the min is, and
+    a marginal (the difference of two cell minima) inherits the sum of
+    its cells' floors.  Callers compare contrast against jitter before
+    trusting (or persisting) the winner.  (The JAX package's function,
+    line for line.)
+    """
+    import time as _time
+
+    timer = timer or _time.perf_counter
+    n_lo, n_hi = depths
+    times = {(m, n): [] for m in fns for n in (n_lo, n_hi)}
+    for _ in range(iters):
+        for m, fn in fns.items():
+            for n in (n_lo, n_hi):
+                t0 = timer()
+                fn(n)
+                times[(m, n)].append(timer() - t0)
+    marginal = {m: min(times[(m, n_hi)]) - min(times[(m, n_lo)])
+                for m in fns}
+
+    def cell_floor(samples):
+        if len(samples) < 2:
+            return 0.0
+        s = sorted(samples)
+        return s[1] - s[0]
+
+    jitter = max(cell_floor(times[(m, n_hi)]) + cell_floor(times[(m, n_lo)])
+                 for m in fns)
+    ranked = sorted(fns, key=marginal.get)
+    winner = ranked[0]
+    contrast = (marginal[ranked[1]] - marginal[ranked[0]]
+                if len(ranked) > 1 else float('inf'))
+    return winner, contrast, jitter
+
+
+def _slope_pick(fns: dict, depths: tuple, iters: int = 5,
+                timer=None) -> str:
+    """The variant with the smallest marginal time (see _slope_measure)."""
+    return _slope_measure(fns, depths, iters, timer)[0]
+
+
+def _tune_cache_path():
+    """Tune-cache file, or None when disabled (GAR_TUNE_CACHE_FILE=).
+
+    The JAX package reads the same variable; the default lies apart
+    from its file."""
+    path = os.environ.get(
+        "GAR_TUNE_CACHE_FILE",
+        os.path.join(os.path.expanduser("~"), ".cache",
+                     "go_audio_resampler_tpu_torch", "tune.json"))
+    return path or None
+
+
+def _tune_cache_read(path: str) -> dict:
+    """The cache file's entries; an absent, unreadable or corrupt file
+    has none."""
+    try:
+        with open(path) as f:
+            data = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    return data if isinstance(data, dict) else {}
+
+
+def _tune_cache_get(key: str):
+    path = _tune_cache_path()
+    if path is None:
+        return None
+    return _tune_cache_read(path).get(key)
+
+
+def _tune_cache_put(key: str, entry) -> None:
+    """Persist a tune entry: a bare winner string (legacy) or a dict
+    ``{"winner": ..., "contrast_s": ..., "jitter_s": ...}`` recording the
+    measured margin so a later reader can judge how settled the pin is.
+
+    The file is replaced atomically (a temporary file, then
+    ``os.replace``).  A cache that cannot be written is skipped: the
+    engine keeps its pin."""
+    path = _tune_cache_path()
+    if path is None:
+        return
+    data = _tune_cache_read(path)
+    data[key] = entry
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(tmp, "w") as f:
+            json.dump(data, f, indent=1)
+        os.replace(tmp, path)          # atomic on POSIX
+    except OSError:
+        pass
+
+
+def _tune_measures(device: torch.device) -> bool:
+    """Does ``dispatch='tune'`` measure on ``device``?  Only on the card:
+    elsewhere both lowerings are the same plain version, and the tune
+    gives 'auto' (as the JAX package's does off the TPU)."""
+    return device.type == 'cuda'
+
+
+@functools.lru_cache(maxsize=None)
+def _card_label(device: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=
+    name,power.limit`` prints them, or 'cpu'; read once a process.  A
+    card that ``nvidia-smi`` does not list is named by PyTorch, its power
+    limit unknown."""
+    if device.type != 'cuda':
+        return 'cpu'
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    uuid = str(getattr(torch.cuda.get_device_properties(index), 'uuid', ''))
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=uuid,name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        out = ''
+    lines = out.strip().splitlines()
+    for line in lines:
+        card_uuid, _, label = line.partition(', ')
+        if len(lines) == 1 or (
+                uuid and card_uuid.strip().removeprefix('GPU-') == uuid):
+            return label.strip()
+    return f"{torch.cuda.get_device_name(index)}, power limit unknown"
+
+
+def _kernel_digest() -> str:
+    """The library names of K1 and K2, which carry the digests of their
+    sources (``ops/_build.py``): a pin never outlives the kernels it
+    measured."""
+    return ' '.join(_build.library_path(name).name
+                    for name in ('fused_resample', 'fused_resample_tmajor'))
+
+
+def _run_chain(core, state, x, depth: int) -> None:
+    for _ in range(depth):
+        state, _y, _n = core(state, x)
+
+
+class _Chain:
+    """Chained steps of one lowering for ``dispatch='tune'``: calling it
+    with a depth runs that many steps of ``core`` from ``init_state()``
+    on the zero block ``x``, waits for them, and keeps the seconds they
+    took.
+
+    On the card each depth is one CUDA graph, so that a chain's time is
+    device time and not the host's enqueue: one eager step first, on a
+    side stream, then each graph captured and replayed once before it is
+    timed.  Elsewhere (a forced tune on the CPU) the chain runs eagerly.
+    """
+
+    def __init__(self, core, init_state, x: torch.Tensor, depths):
+        self.seconds = {n: [] for n in depths}
+        self.graphs = {}
+        self.device = x.device
+        state = init_state()
+        if x.device.type == 'cuda':
+            side = torch.cuda.Stream(x.device)
+            side.wait_stream(torch.cuda.current_stream(x.device))
+            with torch.cuda.stream(side):
+                core(state, x)
+            torch.cuda.current_stream(x.device).wait_stream(side)
+            for n in depths:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    _run_chain(core, state, x, n)
+                self.graphs[n] = graph
+            self._run = lambda n: self.graphs[n].replay()
+        else:
+            self._run = functools.partial(_run_chain, core, state, x)
+        for n in depths:                 # once before timing
+            self(n)
+            self.seconds[n].clear()
+
+    def __call__(self, n: int) -> None:
+        t0 = time.perf_counter()
+        self._run(n)
+        if self.graphs:
+            torch.cuda.synchronize(self.device)
+        self.seconds[n].append(time.perf_counter() - t0)
+
+    def marginal_ms(self) -> float | None:
+        """ms a step: the slope between the two depths' fastest timed
+        runs (None before any)."""
+        (lo, t_lo), (hi, t_hi) = sorted(self.seconds.items())
+        if not (t_lo and t_hi):
+            return None
+        return (min(t_hi) - min(t_lo)) / (hi - lo) * 1e3
 
 
 def pipelined_stream(eng, chunks, out: str, granule: int):
@@ -258,7 +482,10 @@ class EngineCore:
               or float64 (CPU parity runs)
       dispatch: 'auto' or 'pallas' (the K1 kernel on CUDA, its plain
               version on the CPU), or 'xla' (the plain version on either)
-              for the fused banded steps; 'tune' is not ported
+              for the fused banded steps; 'tune' measures the kernel and
+              the plain version on the card when the engine is built and
+              pins the faster (:meth:`_tune_dispatch`), so that
+              ``dispatch`` reads 'pallas', 'xla' or 'auto' afterwards
       precision: the matmul tier of float32 steps: 'highest' (float32-
               accurate), 'high' (three bf16 passes), 'default' (one bf16
               pass), or 'auto' (GAR_TPU_MATMUL_PRECISION, read when the
@@ -295,7 +522,99 @@ class EngineCore:
         self.precision = precision
         self._tier = tier
         self._build_constants()
+        #: What ``dispatch='tune'`` found (:meth:`_tune_dispatch`); None
+        #: for any other dispatch.
+        self.tune_record = None
+        if dispatch == 'tune':
+            self.dispatch = self._tune_dispatch()
         self.reset()
+
+    #: chain depths for dispatch='tune' (see _tune_dispatch): the winner
+    #: is the smaller MARGINAL time between these two depths.
+    TUNE_DEPTHS = (4, 36)
+    #: A tune winner is pinned/persisted only when the marginal-time
+    #: contrast exceeds this multiple of the session's jitter floor.
+    TUNE_NOISE_FACTOR = 2.0
+
+    def _tune_dispatch(self, persist: bool = True) -> str:
+        """Pick the faster lowering of the fused banded step by measuring
+        device time, at this engine's (batch, block, dtype, tier).
+
+        Each lowering ('pallas', the K1 kernel; 'xla', its plain version)
+        runs chains of :meth:`core_fn` steps from :meth:`_init_state` on
+        a zero block, one CUDA graph per (lowering, depth)
+        (:class:`_Chain`), and the score is the slope between the two
+        depths of ``TUNE_DEPTHS``: marginal seconds a step, with the
+        fixed cost of a replay and its synchronize cancelled.  A step's
+        host enqueue (tens of µs against a few of kernel) is not
+        measured.  The graphs are freed when the tune returns.
+
+        Gives 'auto' without measuring off the card and where the engine
+        has no banded step (the walk, cubic, dft_up, FFT decimation).
+        Winners persist per :meth:`_tune_key` in a JSON cache
+        (``GAR_TUNE_CACHE_FILE``, default
+        ``~/.cache/go_audio_resampler_tpu_torch/tune.json``; empty
+        disables it); a hit pins without capturing anything.  Where the
+        contrast is below ``TUNE_NOISE_FACTOR`` times the jitter the pin
+        is 'auto' and nothing is written.  ``persist=False`` writes
+        nothing either (a sharded engine's ranks other than 0).
+
+        An error of either lowering (a build, a launch, a capture)
+        propagates: the tune never turns a failure into a pin.  Records
+        what it found in ``tune_record``.
+        """
+        t0 = time.perf_counter()
+        rec = self.tune_record = {'pin': 'auto', 'source': 'off the card',
+                                  'graphs': 0}
+        if self._band is None:
+            rec['source'] = 'no banded step'
+        if self._band is None or not _tune_measures(self.device):
+            return 'auto'
+        key = self._tune_key()
+        cached = _tune_cache_get(key)
+        if isinstance(cached, dict):
+            cached = cached.get('winner')
+        if cached in ('pallas', 'xla'):
+            rec.update(pin=cached, source='cache',
+                       seconds=time.perf_counter() - t0)
+            return cached
+        x = torch.zeros((self.batch, self.block), dtype=self.dtype,
+                        device=self.device)
+        saved, fns = self.dispatch, {}
+        try:
+            for mode in ('pallas', 'xla'):
+                self.dispatch = mode
+                fns[mode] = _Chain(self.core_fn(), self._init_state, x,
+                                   self.TUNE_DEPTHS)
+        finally:
+            self.dispatch = saved
+        winner, contrast, jitter = _slope_measure(fns, self.TUNE_DEPTHS)
+        rec.update(source='measured', contrast_s=contrast, jitter_s=jitter,
+                   marginal_ms={m: fn.marginal_ms() for m, fn in fns.items()},
+                   graphs=sum(len(fn.graphs) for fn in fns.values()))
+        del fns
+        if contrast < self.TUNE_NOISE_FACTOR * jitter:
+            # The marginal gap is indistinguishable from timing noise: do
+            # not pin, do not persist.
+            rec['seconds'] = time.perf_counter() - t0
+            return 'auto'
+        if persist:
+            _tune_cache_put(key, {'winner': winner, 'contrast_s': contrast,
+                                  'jitter_s': jitter})
+        rec.update(pin=winner, seconds=time.perf_counter() - t0)
+        return winner
+
+    def _tune_key(self) -> str:
+        """Stable tune-cache key: the plan's identity, the engine's
+        shape, dtype and resolved tier, the card (name and power limit),
+        and the package, PyTorch and CUDA versions with the digest of
+        the K1 and K2 sources, so a pin never outlives the kernels it
+        measured."""
+        from .. import __version__
+        return repr((self.plan.fingerprint, self.batch, self.block,
+                     str(self.dtype), self._tier, _card_label(self.device),
+                     __version__, torch.__version__, torch.version.cuda,
+                     _kernel_digest()))
 
     # -- construction ------------------------------------------------------
 
@@ -468,50 +787,64 @@ class EngineCore:
             hist=torch.zeros((s, self.hist_size), dtype=d, device=dev),
             hist_len=0, at_hi=p.at0 >> 16, at_lo=p.at0 & 0xFFFF))
 
-    def _step(self, state, x):
-        """One step ``(state, x) -> (state', y, n)``: ``y[:, :n]`` are the
-        core's outputs.  The walks step block by block over ``x``."""
+    def core_fn(self):
+        """The pure step of this engine's topology, ``(state, x) ->
+        (state', y, n)`` over the state of :meth:`_init_state`:
+        ``y[:, :n]`` are the core's outputs.  The walks (the general
+        walk, cubic) step block by block over ``x`` and return only
+        their ``n`` outputs.
+
+        The lowering (``dispatch``) and the tier are those of the moment
+        it is called: a later change of ``dispatch`` does not reach a
+        function already returned.  The tune's chains call it.
+        """
         p = self.plan
         if self._band is not None:
             r_t, ipx, wx, p2, _, op = self._band
-            return _fused_banded_step(r_t, state, x, ipx=ipx, wx=wx, p2=p2,
-                                      op=op, dispatch=self.dispatch,
-                                      tier=self._tier)
+            return functools.partial(_fused_banded_step, r_t, ipx=ipx,
+                                     wx=wx, p2=p2, op=op,
+                                     dispatch=self.dispatch,
+                                     tier=self._tier)
         if self._decim_fft is not None:
-            return _fft_decim_step(self._decim_fft, p.factor, state, x)
-        if p.kind == 'dft_up':
-            if p.factor == 1:
-                # unity ratio: pass-through (dft_stage.go:57-59)
-                return state, x, x.shape[1]
-            state, u = stages.prestage_process(
-                self.pre_coeffs, state, x, p.factor, self._tier,
-                band=self._pre_band(x.shape[1]))
-            return state, u, u.shape[1]
-        ys, n = [], 0
-        for a in range(0, x.shape[1], self.block):
-            blk = x[:, a:a + self.block]
-            if p.kind == 'cubic':
-                state, y, _, k = stages.cubic_process(state, blk,
-                                                      p.cubic_step,
-                                                      self.cubic_cap)
-            else:
-                state, y, k = self._walk_step(state, blk)
-            ys.append(y[:, :k])
-            n += k
-        return state, (torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]), n
+            return functools.partial(_fft_decim_step, self._decim_fft,
+                                     p.factor)
+        if p.kind == 'dft_up' and p.factor == 1:
+            # unity ratio: pass-through (dft_stage.go:57-59)
+            return lambda state, x: (state, x, x.shape[1])
+        tier = self._tier
+        if p.kind == 'cubic':
+            def cubic_block(state, x):
+                state, y, _, n = stages.cubic_process(
+                    state, x, p.cubic_step, self.cubic_cap)
+                return state, y, n
+            return _blockwise(cubic_block, self.block)
 
-    def _walk_step(self, state, x):
-        """One block of the general walk: the prestage (K1 on the card),
-        then the polyphase emit."""
-        p = self.plan
-        pre, poly = state
-        pre, u = stages.prestage_process(self.pre_coeffs, pre, x, p.factor,
-                                         self._tier,
-                                         band=self._pre_band(x.shape[1]))
-        poly, y, _, n = stages.poly_process(
-            self.banks, poly, u, p.num_phases, p.poly_taps, p.step_hi,
-            p.step_lo, self.poly_cap, self._tier)
-        return (pre, poly), y, n
+        def prestage(state, x):
+            return stages.prestage_process(self.pre_coeffs, state, x,
+                                           p.factor, tier,
+                                           band=self._pre_band(x.shape[1]))
+
+        if p.kind == 'dft_up':
+            def dft_up(state, x):
+                state, u = prestage(state, x)
+                return state, u, u.shape[1]
+            return dft_up
+
+        def walk_block(state, x):
+            # The general walk: the prestage (K1 on the card), then the
+            # polyphase emit.
+            pre, poly = state
+            pre, u = prestage(pre, x)
+            poly, y, _, n = stages.poly_process(
+                self.banks, poly, u, p.num_phases, p.poly_taps, p.step_hi,
+                p.step_lo, self.poly_cap, tier)
+            return (pre, poly), y, n
+        return _blockwise(walk_block, self.block)
+
+    def _step(self, state, x):
+        """One step of :meth:`core_fn` at the engine's current
+        ``dispatch``."""
+        return self.core_fn()(state, x)
 
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)

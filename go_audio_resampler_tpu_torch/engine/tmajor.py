@@ -68,7 +68,10 @@ class TimeMajorEngine:
     banded matrix; ``EngineCore`` runs it).  ``device`` is 'cuda' by default (K2);
     ``device='cpu'`` runs K2's plain version.
     ``dispatch`` and ``precision`` are ``EngineCore``'s: the same gate and
-    the same tier, so the output equals ``EngineCore``'s.
+    the same tier, so the output equals ``EngineCore``'s.  With
+    ``dispatch='tune'`` the inner ``EngineCore`` measures its stream-major
+    step (K1 against its plain version) and its pin governs K2, as the
+    JAX engine takes its inner engine's pin.
     """
 
     def __init__(self, plan: EnginePlan, batch: int = 1, block: int = 2048,
@@ -84,8 +87,8 @@ class TimeMajorEngine:
                 "TimeMajorEngine: banded composites with an aperiodic "
                 "head are not supported; use EngineCore.process_device")
         # Borrow EngineCore's constants (the operator, carry, ipx, wx and
-        # p2 of every fused banded step, composites included); it raises
-        # for the knobs the port does not run.
+        # p2 of every fused banded step, composites included), its checks
+        # of the knobs and its resolved dispatch.
         eng = EngineCore(plan, batch=batch, block=block, dtype=dtype,
                          dispatch=dispatch, precision=precision,
                          device=device)

@@ -1,12 +1,12 @@
-"""Batched 1-D FIR convolution: the banded lowering (K1) and the frames
-lowering.
+"""Batched 1-D FIR convolution: the banded lowering (K1), the frames
+lowering and the xla lowering.
 
 Counterpart of the JAX package's ``ops/convolve.py``: one primitive
 ``conv1d_poly(x, kernels, stride)`` computing
 
     y[s, f, i] = sum_t x[s, i*stride + t] * kernels[f, t]
 
-and its interleaved form for the polyphase upsampler.  Two lowerings:
+and its interleaved form for the polyphase upsampler.  Three lowerings:
 
 - ``banded``: P outputs per frame read a shared (P-1)*stride + T window
   against a banded [W, P*F] matrix (``band_matrix``), which is exactly the
@@ -16,22 +16,28 @@ and its interleaved form for the polyphase upsampler.  Two lowerings:
   version instead).  CUDA tensors take it.
 - ``frames``: windows as an ``unfold`` view, then one ``einsum``.  CPU
   tensors take it, as the JAX package does on its CPU backend.
+- ``xla``: ``torch.nn.functional.conv1d`` with the kernels as [F, 1, T]
+  weights (the JAX package's ``lax.conv_general_dilated``), never chosen
+  by default.
 
-``precision`` is the matmul tier of either lowering (one of
+By default the tensor's device picks the lowering; :func:`set_conv_impl`
+forces one for the whole process, as the JAX package's does.
+
+``precision`` is the matmul tier of every lowering (one of
 ``precision.PRECISION_MODES``; 'auto' reads the process-wide tier), which
 the two entry points resolve once: the banded lowering's operator is
-prepared at it, the frames lowering forms its products with
+prepared at it, the frames and xla lowerings form their products with
 ``precision.tiered_matmul``.  The helpers below them take the resolved
-tier.  The JAX package's
-``set_conv_impl`` override and its ``xla`` lowering have no counterpart:
-the tensor's device picks the lowering.
+tier.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from . import banded, fused
 from .precision import (PRECISION_MODES, check_tier, dispatch_allowed,
@@ -39,6 +45,26 @@ from .precision import (PRECISION_MODES, check_tier, dispatch_allowed,
 
 #: outputs per frame of the banded lowering on the card
 BAND_PERIOD = 128
+_IMPL_OVERRIDE: str | None = None
+
+
+def set_conv_impl(impl: str | None) -> None:
+    """Force a lowering of :func:`conv1d_poly` and
+    :func:`conv1d_poly_interleaved` for the whole process: 'xla'
+    (``F.conv1d``), 'frames', 'banded' (K1 on a CUDA tensor, its plain
+    version on the CPU), or None (the default: banded on a CUDA tensor,
+    frames on the CPU).  A choice made by hand, as ``dispatch='xla'``
+    is, not a fallback."""
+    global _IMPL_OVERRIDE
+    if impl not in (None, 'xla', 'frames', 'banded'):
+        raise ValueError(f"unknown conv impl: {impl}")
+    _IMPL_OVERRIDE = impl
+
+
+def _impl(x: torch.Tensor) -> str:
+    if _IMPL_OVERRIDE is not None:
+        return _IMPL_OVERRIDE
+    return 'banded' if x.device.type == 'cuda' else 'frames'
 
 
 def _tier(precision: str) -> str:
@@ -102,6 +128,30 @@ def _conv_frames(x: torch.Tensor, kernels: torch.Tensor, stride: int,
                          lambda a, b: torch.einsum('sct,ft->sfc', a, b))
 
 
+@contextlib.contextmanager
+def _cudnn_without_tf32():
+    """cuDNN's float32 convolutions at float32 accuracy (its default is
+    TF32), the old setting restored after."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def _conv_xla(x: torch.Tensor, kernels: torch.Tensor, stride: int,
+              tier: str) -> torch.Tensor:
+    """xla lowering: ``F.conv1d`` of [S, 1, n] with [F, 1, T] weights at
+    ``stride`` -> [S, F, n_out], at ``tier`` (float32 products on the
+    card, cuDNN's TF32 off)."""
+    def conv(a, b):
+        return F.conv1d(a, b, stride=stride)
+    with _cudnn_without_tf32():
+        return tiered_matmul(x[:, None, :], kernels[:, None, :].to(x.dtype),
+                             tier, conv)
+
+
 def _conv_banded(x: torch.Tensor, kernels: torch.Tensor, stride: int,
                  interleaved: bool = False, band: ConvBand | None = None, *,
                  tier: str) -> torch.Tensor:
@@ -153,10 +203,14 @@ def conv1d_poly(x: torch.Tensor, kernels: torch.Tensor, stride: int = 1,
     this correlation implements the reference's convolution direction.
     The K1 kernel on a CUDA tensor (reading ``band`` where given,
     prepared at the tier of ``precision``), the frames lowering on a CPU
-    tensor, at the tier of ``precision``.
+    tensor, at the tier of ``precision``; :func:`set_conv_impl` forces
+    another (``band`` is read only by the banded lowering).
     """
     tier = _tier(precision)
-    if x.device.type == "cuda":
+    impl = _impl(x)
+    if impl == 'xla':
+        return _conv_xla(x, kernels, stride, tier)
+    if impl == 'banded':
         return _conv_banded(x, kernels, stride, band=band, tier=tier)
     return _conv_frames(x, kernels, stride, tier)
 
@@ -169,11 +223,10 @@ def conv1d_poly_interleaved(x: torch.Tensor, kernels: torch.Tensor,
     The polyphase-upsampled stream in its natural interleaved order.  The
     banded lowering emits this layout directly (on the card, reading
     ``band`` where given, prepared at the tier of ``precision``); the
-    frames lowering transposes its [S, F, n_out] output.
+    frames and xla lowerings transpose their [S, F, n_out] output.
     """
-    tier = _tier(precision)
-    if x.device.type == "cuda":
+    if _impl(x) == 'banded':
         return _conv_banded(x, kernels, 1, interleaved=True, band=band,
-                            tier=tier)
-    out = _conv_frames(x, kernels, 1, tier)              # [S, F, n_out]
+                            tier=_tier(precision))
+    out = conv1d_poly(x, kernels, 1, precision)          # [S, F, n_out]
     return out.transpose(1, 2).reshape(x.shape[0], -1)

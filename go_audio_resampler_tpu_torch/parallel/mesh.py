@@ -193,7 +193,7 @@ def sharded_stream_step(plan, mesh: DeviceMesh, batch_per_device: int,
     ``all_reduce`` (the only cross-rank traffic), never read back inside
     the step.
 
-    The step is the rank's serial ``EngineCore`` step on its rows:
+    The step is the rank's serial ``EngineCore.core_fn`` on its rows:
     exact-rational plans run the fused banded step (K1 on the card), whose
     stream includes the leading ramp that a consumer trims as
     ``EngineCore`` does; other plans run the poly walk (the prestage, K1
@@ -210,10 +210,11 @@ def sharded_stream_step(plan, mesh: DeviceMesh, batch_per_device: int,
     sh = _Shards(mesh, batch_per_device)
     eng = EngineCore(plan, batch=batch_per_device, block=block, dtype=dtype,
                      device=sh.device)
+    core = eng.core_fn()
 
     def step(state, x):
         sh.check(x)
-        state, y, n = eng._step(state, eng._to_device(sh.local(x)))
+        state, y, n = core(state, eng._to_device(sh.local(x)))
         # A walk step that emits nothing (the history still filling) has
         # a peak of 0.
         peak = y.abs().amax() if y.numel() else y.new_zeros(())
@@ -290,6 +291,12 @@ class ShardedEngineCore(_ShardedStreams, EngineCore):
     (``batch_per_device * mesh.size()`` rows); ``process_device``,
     ``flush_device`` and ``stream(out='device')`` return ``DTensor`` s
     with ``Shard(0)``.  ``batch`` is the rank's row count.
+
+    With ``dispatch='tune'`` every rank tunes its serial engine at
+    ``batch_per_device`` rows, then pins rank 0's result, sent with one
+    ``broadcast_object_list``, so that every rank runs one lowering (the
+    JAX package's single controller pins one for the mesh).  Only rank 0
+    writes the tune cache.
     """
 
     def __init__(self, plan, mesh: DeviceMesh, batch_per_device: int = 1,
@@ -300,6 +307,15 @@ class ShardedEngineCore(_ShardedStreams, EngineCore):
         super().__init__(plan, batch=batch_per_device, block=block,
                          dtype=dtype, dispatch=dispatch, precision=precision,
                          device=self._shards.device)
+
+    def _tune_dispatch(self, persist: bool = True) -> str:
+        first = self.mesh.get_local_rank(STREAM_AXIS) == 0
+        pin = [super()._tune_dispatch(persist=persist and first)]
+        group = self._shards.group
+        dist.broadcast_object_list(pin, src=dist.get_global_rank(group, 0),
+                                   group=group)
+        self.tune_record['pin'] = pin[0]
+        return pin[0]
 
 
 def global_stream_stats(x, mesh: DeviceMesh):

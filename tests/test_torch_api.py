@@ -224,8 +224,19 @@ def test_default_device_without_cuda_raises():
 
 
 def test_dispatch_tune_reaches_the_engines():
-    with pytest.raises(NotImplementedError, match="tune"):
-        tar.new_resampler(_config(tar, 44100, 48000, dispatch="tune"))
+    """Config(dispatch='tune') builds every engine with the tune, which
+    resolves to 'auto' off the card; the output is the 'auto' config's."""
+    r = tar.new_resampler(_config(tar, 44100, 48000, dispatch="tune",
+                                  channels=2))
+    assert r._exec and all(e.dispatch == "auto" for e in r._exec)
+    ref = tar.new_resampler(_config(tar, 44100, 48000, channels=2))
+    x = list(np.random.default_rng(3).normal(size=(2, 5000)))
+    got = np.concatenate([np.stack(r.process_multi(x)),
+                          np.stack(r.flush_multi())], axis=1)
+    want = np.concatenate([np.stack(ref.process_multi(x)),
+                           np.stack(ref.flush_multi())], axis=1)
+    assert got.shape == want.shape and got.shape[1] > 0
+    assert np.array_equal(got, want)
 
 
 # -- the chain: stage plans, exec kinds, composites ------------------------------

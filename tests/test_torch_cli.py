@@ -83,8 +83,8 @@ def test_batch_mode_matches_jax(tmp_path):
 
 def test_error_exits(tmp_path, capsys):
     """Missing input, a name collision, a wrong positional count: the
-    JAX CLI's exit codes; -dispatch tune exits non-zero with the port's
-    "queue 1" error."""
+    JAX CLI's exit codes; -dispatch tune now runs (exit 0) and writes the
+    -dispatch auto output (it resolves to 'auto' on the CPU)."""
     missing = [str(tmp_path / "none.wav"), str(tmp_path / "o.wav")]
     assert t_wav.run(missing + CPU) == j_wav.run(missing) == 1
     for sub in ("a", "b"):
@@ -98,11 +98,12 @@ def test_error_exits(tmp_path, capsys):
     assert capsys.readouterr().err.count("collision") == 2
     assert t_wav.run([str(tmp_path / "x.wav")] + CPU) == \
         j_wav.run([str(tmp_path / "x.wav")]) == 2
-    assert t_wav.run([str(tmp_path / "a" / "same.wav"),
-                      str(tmp_path / "o.wav"), "-dispatch", "tune"]
-                     + CPU) == 1
-    assert "queue 1" in capsys.readouterr().err
-    assert not (tmp_path / "o.wav").exists()
+    for mode in ("tune", "auto"):
+        assert t_wav.run([str(tmp_path / "a" / "same.wav"),
+                          str(tmp_path / f"{mode}.wav"), "-dispatch", mode]
+                         + CPU) == 0
+    assert ((tmp_path / "tune.wav").read_bytes()
+            == (tmp_path / "auto.wav").read_bytes())
 
 
 def test_no_gpu_without_device_cpu(tmp_path, capsys, monkeypatch):

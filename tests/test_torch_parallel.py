@@ -12,7 +12,10 @@ engine:
 - multi-rank cases: 2 and 4 ranks spawned as processes (``gloo`` on a
   file store), 4 and 2 streams a rank, several topologies a spawn; the
   gathered rows are held to the same references, and the MAX
-  ``all_reduce`` of the stream step's peak to the global max|y|.
+  ``all_reduce`` of the stream step's peak to the global max|y|;
+- ``dispatch='tune'`` on 2 spawned ranks, each rank's measurement
+  patched to its own winner: both pin rank 0's, and only rank 0 writes
+  the tune cache.
 
 The spawned ranks run a worker script written to the test's temporary
 directory: they import neither JAX nor this module.  Each spawn ends
@@ -486,13 +489,52 @@ WORKER = textwrap.dedent('''
 ''')
 SPAWN_CASES = [CASES[0], CASES[3], CASES[5], CASES[6]]
 
+#: dispatch='tune' on every rank, measured on the CPU (the seam that gates
+#: measurement on the card forced open), with each rank's measurement
+#: patched to its own winner: every rank must pin rank 0's, and only rank
+#: 0 writes the tune cache (one file a rank).
+TUNE_WORKER = textwrap.dedent('''
+    import json, os, sys
+    from datetime import timedelta
+    import numpy as np
+    import torch.distributed as dist
 
-def _spawn(tmp_path, world):
-    """Run the worker on ``world`` ranks; the gathered results of rank 0.
+    rank, world, store, out = (int(sys.argv[1]), int(sys.argv[2]),
+                               sys.argv[3], sys.argv[4])
+    os.environ["GAR_TUNE_CACHE_FILE"] = f"{out}.{rank}.json"
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=60))
+    from go_audio_resampler_tpu_torch import Quality, parallel, plan_engine
+    from go_audio_resampler_tpu_torch.engine import streaming
+
+    mine = "pallas" if rank == 0 else "xla"
+    streaming._tune_measures = lambda device: True
+    streaming._slope_measure = (lambda fns, depths, iters=5, timer=None:
+                                (mine, 1e-2, 1e-4))
+    eng = parallel.ShardedEngineCore(
+        plan_engine(44100, 48000, Quality.HIGH), parallel.make_mesh(
+            world, device_type="cpu"), batch_per_device=2, block=256,
+        dtype=np.float64, dispatch="tune")
+    dist.barrier()
+    pins = [None] * world
+    dist.all_gather_object(pins, eng.dispatch)
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump({"pins": pins, "caches": [
+                os.path.exists(f"{out}.{r}.json") for r in range(world)]},
+                f)
+    dist.barrier()
+    dist.destroy_process_group()
+''')
+
+
+def _spawn(tmp_path, world, worker=WORKER, out_name="out.npz"):
+    """Run ``worker`` on ``world`` ranks; the path of rank 0's results.
     Every rank is killed, and the test fails, past SPAWN_TIMEOUT."""
     script = tmp_path / "worker.py"
-    script.write_text(WORKER)
-    out = tmp_path / "out.npz"
+    script.write_text(worker)
+    out = tmp_path / out_name
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, str(script), str(r), str(world),
@@ -511,12 +553,18 @@ def _spawn(tmp_path, world):
             p.kill()
             p.wait()
     assert all(p.returncode == 0 for p in procs), "\n".join(logs)
-    return dict(np.load(out))
+    return out
+
+
+def test_spawned_ranks_pin_rank_0s_tune(tmp_path):
+    res = json.loads(_spawn(tmp_path, 2, TUNE_WORKER,
+                            "tune.json").read_text())
+    assert res == {"pins": ["pallas", "pallas"], "caches": [True, False]}
 
 
 @pytest.mark.parametrize("world", [2, 4])
 def test_spawned_ranks_match_jax_and_serial(tmp_path, jmesh, world):
-    res = _spawn(tmp_path, world)
+    res = dict(np.load(_spawn(tmp_path, world)))
     for case in SPAWN_CASES:
         x, want = _jax_engine(case)
         got = res["eng_{}_{}_{}_{}".format(*case)]

@@ -540,11 +540,28 @@ def test_dispatch_routes_each_step(monkeypatch, tier):
             assert np.array_equal(a, b), mode
 
 
-def test_tune_still_raises():
+def test_tune_resolves_off_the_card():
+    """'tune' resolves to 'auto' on the CPU in both engines (the JAX
+    engine's off the TPU) and streams the 'auto' engine's bits."""
     _, tp = _plans(CD_DAT)
+    x = np.random.default_rng(5).normal(size=(2, 3000)).astype(np.float32)
     for cls in (EngineCore, TimeMajorEngine):
-        with pytest.raises(NotImplementedError, match="tune"):
-            cls(tp, device="cpu", dispatch="tune")
+        tuned = cls(tp, batch=2, device="cpu", dispatch="tune")
+        assert tuned.dispatch == "auto"
+        want = cls(tp, batch=2, device="cpu")
+        if cls is EngineCore:
+            assert tuned.tune_record["pin"] == "auto"
+            got = np.concatenate([tuned.process(x), tuned.flush()], axis=1)
+            want = np.concatenate([want.process(x), want.flush()], axis=1)
+        else:
+            n = x.shape[1] // tuned.chunk_multiple * tuned.chunk_multiple
+            xt = torch.from_numpy(np.ascontiguousarray(x[:, :n].T))
+            got = torch.cat([tuned.process_device(xt),
+                             tuned.flush_device()]).numpy()
+            want = torch.cat([want.process_device(xt),
+                              want.flush_device()]).numpy()
+        assert got.shape == want.shape and got.shape[0] > 0
+        assert np.array_equal(got, want)
 
 
 # -- one-shot and the convolution ------------------------------------------------

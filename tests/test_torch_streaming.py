@@ -412,7 +412,7 @@ def test_unported_topologies_raise(rates, kw, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    ({"dispatch": "tune"}, NotImplementedError),
+    ({"precision": "tune"}, ValueError),
     ({"dispatch": "bogus"}, ValueError),
     ({"precision": "bogus"}, ValueError),
     ({"dtype": np.int32}, ValueError),
@@ -424,12 +424,15 @@ def test_unsupported_knobs_raise(kw, exc):
 
 
 @pytest.mark.parametrize("kw", [{"dispatch": "pallas"}, {"dispatch": "xla"},
+                                {"dispatch": "tune"},
                                 {"precision": "high"},
                                 {"precision": "default"}])
 def test_ported_knobs_run(kw):
     """The dispatch modes and reduced tiers run and match the JAX engine:
     every mode gives the default engine's bits (on the CPU each takes the
-    plain version) within 2e-5 of JAX's float32 run with the same mode;
+    plain version; 'tune' resolves to 'auto' off the card, as the JAX
+    engine's does off the TPU) within 2e-5 of JAX's float32 run with the
+    same mode;
     'high' is within 3e-4 of max|y| of JAX's float64 run and 'default'
     within a bound from bf16's roundoff
     (``precision.default_error_bound``)."""
@@ -441,9 +444,10 @@ def test_ported_knobs_run(kw):
                     device="cpu", **kw)
     got = np.concatenate([te.process(x), te.flush()], axis=1)
     if "dispatch" in kw:
-        assert te.dispatch == kw["dispatch"]
         je = JEngine(je.plan, batch=BATCH, block=BLOCK, dtype=np.float32,
                      dispatch=kw["dispatch"])
+        assert te.dispatch == je.dispatch == (
+            "auto" if kw["dispatch"] == "tune" else kw["dispatch"])
         want = np.concatenate([np.asarray(je.process(x)),
                                np.asarray(je.flush())], axis=1)
         _close(got, want, np.float32)
