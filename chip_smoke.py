@@ -214,12 +214,19 @@ is printed):
       launch K1, 'frames' and 'xla' none, each within 2e-5 of max|y| of
       K1's output ('xla' turns TF32 off), each lowering's graph_ms; the
       override None and TF32 as it was afterwards.
+16. The examples (``go_audio_resampler_tpu_torch/examples/``): each
+   ``main(device='cuda')``, its own asserts required, then the same
+   example on the CPU: every array it returns within 2e-5 of max|y| of
+   the CPU run's, lengths and counts equal; launches by kernel (K1 in
+   ``basic``, ``device_serving``, ``ml_ingest_training`` and ``sharded``,
+   K1 and K2 in ``hq_and_time_major``, none in ``variable_rate``); the
+   ``hq_interp`` THD <= -120 dB; each example's wall time on the card.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after; launches made to compare a kernel with its plain version
 are not counted.  The phases run in the order 1, 2, 8 (kernels and
 one-shot), 3, 4, 8 (engines and gate), 5, 6, 9, 10, 11, 12, 13, 14, 15,
-7.
+16, 7.
 Phase 14's records time each kernel at the shape its path really gave
 it (its first launch there, recorded by a spy).  The last three
 lines are the card, the kernels as JSON, and ``{"ok": true, "device":
@@ -277,6 +284,14 @@ ONESHOT_STREAMS, ONESHOT_SECONDS = 64, 2
 #: thd_stream_44k_48k001_high_db, thd_stream_44k_48k001_hq_interp_db).
 WALK_OUT, WALK_STREAMS, WALK_BLOCK = 48001, 256, 2048
 THD_WALK_DB, THD_WALK_HQ_DB = -85.0, -120.0
+#: The hq_interp example's THD on the card (phase 16): the bound that its
+#: CPU test holds both packages to (tests/test_torch_examples.py).
+EXAMPLE_THD_HQ_DB = -150.0
+#: The kernels each example launches on the card (phase 16).
+EXAMPLE_KERNELS = {"basic": ("K1",), "device_serving": ("K1",),
+                   "hq_and_time_major": ("K1", "K2"),
+                   "ml_ingest_training": ("K1",), "sharded": ("K1",),
+                   "variable_rate": ()}
 #: dft_up and cubic phase: 256 streams of 2 s.
 SMALL_STREAMS, SMALL_SECONDS = 256, 2
 #: Strict antialias and banded composites.  Path A: 96 kHz -> 44.1 kHz
@@ -4693,6 +4708,73 @@ def phase15(gen, seed: int, card: str, k1: dict, k2: dict) -> dict:
                engines.items()}, "set_conv_impl": conv["launches"]}
 
 
+def example_errors(name: str, card_out: dict, cpu_out: dict) -> float:
+    """An example's returned values on the card against its CPU run:
+    each array within KERNEL_TOL of its peak (returns the largest share),
+    each length and count equal."""
+    import torch
+
+    require(card_out.keys() == cpu_out.keys(),
+            f"example {name}: keys {sorted(card_out)} on the card, "
+            f"{sorted(cpu_out)} on the CPU")
+    worst = 0.0
+    for key, want in cpu_out.items():
+        got = card_out[key]
+        if isinstance(want, np.ndarray):
+            require(got.shape == want.shape, f"example {name} {key}: shape "
+                    f"{got.shape} on the card, {want.shape} on the CPU")
+            _, err = rel_err(torch.as_tensor(got, dtype=torch.float64),
+                             torch.as_tensor(want, dtype=torch.float64))
+            require(err <= KERNEL_TOL, f"example {name} {key}: {err:.3g} "
+                    "of max|y| from the CPU run")
+            worst = max(worst, err)
+        elif isinstance(want, int):
+            require(got == want, f"example {name} {key}: {got} on the "
+                    f"card, {want} on the CPU")
+    return worst
+
+
+def phase16(card: str) -> dict:
+    """Phase 16: the six examples on the card, each held against its CPU
+    run; returns the launches (K1, K2, K3) by example."""
+    import importlib
+    import io
+    import torch
+    from go_audio_resampler_tpu_torch.examples import NAMES
+
+    t_all = time.perf_counter()
+    launches = {}
+    for name in NAMES:
+        mod = importlib.import_module(
+            f"go_audio_resampler_tpu_torch.examples.{name}")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = mod.main(device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            ref = mod.main(device="cpu")
+        err = example_errors(name, out, ref)
+        floats = ", ".join(f"{key} {out[key]:.6g} (CPU {ref[key]:.6g})"
+                           for key in out if isinstance(out[key], float))
+        print(f"  example {name}: {wall:.3f} s on the card; launches K1 "
+              f"{counts[0]}, K2 {counts[1]}, K3 {counts[2]}; arrays within "
+              f"{err:.3g} of max|y| of the CPU run"
+              + (f"; {floats}" if floats else "") + f"; {card}")
+        want = EXAMPLE_KERNELS[name]
+        require([c > 0 for c in counts] == [k in want for k in
+                                            ("K1", "K2", "K3")],
+                f"example {name}: launches {counts}, expected {want}")
+        if name == "hq_and_time_major":
+            require(out["thd_hq_db"] <= EXAMPLE_THD_HQ_DB,
+                    f"example {name}: hq_interp THD {out['thd_hq_db']} dB")
+        launches[name] = counts
+    print(f"  phase 16 took {time.perf_counter() - t_all:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4827,6 +4909,11 @@ def main() -> int:
     launches15 = phase15(gen, args.seed, card, k1, k2)
     print("  launches by path: K1 " + ", ".join(
         f"{count} ({name})" for name, count in launches15.items()))
+    print("examples:")
+    launches16 = phase16(card)
+    print("  launches by example: " + ", ".join(
+        f"{name} K1 {k1n} K2 {k2n} K3 {k3n}"
+        for name, (k1n, k2n, k3n) in launches16.items()))
     print("chunking:")
     chunking_phase(args.seed)
     if args.profile:
