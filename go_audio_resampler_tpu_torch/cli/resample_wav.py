@@ -107,7 +107,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "there is no GPU)")
     p.add_argument("-v", action="store_true", help="verbose output")
     p.add_argument("-profile", metavar="DIR", default=None,
-                   help="write a torch.profiler trace to DIR")
+                   help="write a torch.profiler trace to DIR; wrap any "
+                        "call in torch.profiler.profile, as this flag "
+                        "does, to see the port's gar.* spans: "
+                        "gar.engine.{process,process_device,fifo,h2d,"
+                        "step,d2h,emit}, gar.functional.resample, "
+                        "gar.oneshot.{aux,design,upload,apply}, "
+                        "gar.banded.prepare, gar.k1, gar.k2, gar.k3 "
+                        "(utils/spans.py)")
     return p
 
 

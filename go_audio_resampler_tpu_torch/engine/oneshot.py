@@ -43,6 +43,8 @@ import torch
 from ..filterdesign.params import PHASE_FRAC_BITS
 from ..ops import banded, convolve, fused, general
 from ..ops.precision import check_tier, dispatch_allowed, dot_precision
+from ..utils.spans import (ONESHOT_APPLY, ONESHOT_AUX, ONESHOT_DESIGN,
+                           ONESHOT_UPLOAD, span)
 from . import fftstage
 from .counts import CubicSim
 from .plan import EnginePlan
@@ -360,8 +362,9 @@ def _pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
 
 def _matrix_t(r: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     """A host float64 [P, W] operator as R_t [W, P] on the device."""
-    return torch.as_tensor(np.ascontiguousarray(r.T), dtype=dtype,
-                           device=device)
+    with span(ONESHOT_UPLOAD):
+        return torch.as_tensor(np.ascontiguousarray(r.T), dtype=dtype,
+                               device=device)
 
 
 def _banded_aux(r: np.ndarray, ipx: int, dtype: torch.dtype, device,
@@ -447,12 +450,13 @@ def _upload(starts_m, dtype: torch.dtype, device):
     on the host."""
     starts, m = starts_m
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
-    m_t = torch.from_numpy(np.ascontiguousarray(m.transpose(0, 2, 1),
-                                                dtype=np_dtype))
-    bands = general.band_table(m_t)
-    return (torch.as_tensor(starts, dtype=torch.int64, device=device),
-            m_t.to(device), bands.to(device),
-            general.block_warpgroups(bands))
+    with span(ONESHOT_UPLOAD):
+        m_t = torch.from_numpy(np.ascontiguousarray(m.transpose(0, 2, 1),
+                                                    dtype=np_dtype))
+        bands = general.band_table(m_t)
+        return (torch.as_tensor(starts, dtype=torch.int64, device=device),
+                m_t.to(device), bands.to(device),
+                general.block_warpgroups(bands))
 
 
 def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device,
@@ -490,47 +494,61 @@ def _oneshot_aux(plan: EnginePlan, n: int, dtype: torch.dtype, device,
     """
     check_tier(tier)
     device = torch.device(device)
-    canonical = plan.lengths.canonical(n)
-    if canonical <= 0 or n <= 0:
-        return ()
-    if plan.kind == 'cubic':
-        return _upload(_cubic_matrices(plan, canonical), dtype, device)
-    if plan.kind == 'dft_up':
-        if plan.factor == 1:
+    with span(ONESHOT_AUX):
+        canonical = plan.lengths.canonical(n)
+        if canonical <= 0 or n <= 0:
             return ()
-        coeffs = torch.as_tensor(plan.pre_coeffs, dtype=dtype,
-                                 device=device)
+        if plan.kind == 'cubic':
+            with span(ONESHOT_DESIGN):
+                mats = _cubic_matrices(plan, canonical)
+            return _upload(mats, dtype, device)
+        if plan.kind == 'dft_up':
+            if plan.factor == 1:
+                return ()
+            with span(ONESHOT_UPLOAD):
+                coeffs = torch.as_tensor(plan.pre_coeffs, dtype=dtype,
+                                         device=device)
+            if device.type != 'cuda':
+                return coeffs, None
+            # The prestage reads xext = (0^(T1-1) x 0^z), as _oneshot_apply
+            # pads.
+            n_ext = n + plan.pre_taps - 1 + plan.lengths.flush_pad(n)
+            return coeffs, convolve.band_operator(coeffs, n_ext, 1, dtype,
+                                                  device, tier)
+        if plan.kind == 'decimate':
+            if plan.decim_taps >= DECIM_FFT_MIN_TAPS:
+                with span(ONESHOT_UPLOAD):
+                    return (fftstage.spectrum(plan.decim_coeffs, dtype,
+                                              device),)
+            period = (PALLAS_DECIM_PERIOD if device.type == 'cuda'
+                      else DECIM_PERIOD)
+            with span(ONESHOT_DESIGN):
+                r, _, ipx = _decim_matrix(plan, period)
+            return _banded_aux(r, ipx, dtype, device, tier)
+        # two_stage
+        if plan.is_rational_exact:
+            with span(ONESHOT_DESIGN):
+                r, _, ipx, lam = _fused_rational_matrix(plan)
+                r, ipx = superframe(r, ipx)
+            return _banded_aux(r, ipx, dtype, device, tier, lam)
+        with span(ONESHOT_DESIGN):
+            mats = _general_matrices(plan, canonical)
+        aux = _upload(mats, dtype, device)
+        if not plan.aa_taps:
+            return aux
+        if plan.aa_taps >= FFT_CONV_MIN_TAPS:
+            with span(ONESHOT_UPLOAD):
+                return aux + (fftstage.spectrum(plan.aa_coeffs, dtype,
+                                                device), None)
+        with span(ONESHOT_UPLOAD):
+            h = torch.as_tensor(plan.aa_coeffs, dtype=dtype,
+                                device=device)[None, :]
         if device.type != 'cuda':
-            return coeffs, None
-        # The prestage reads xext = (0^(T1-1) x 0^z), as _oneshot_apply pads.
-        n_ext = n + plan.pre_taps - 1 + plan.lengths.flush_pad(n)
-        return coeffs, convolve.band_operator(coeffs, n_ext, 1, dtype, device,
-                                              tier)
-    if plan.kind == 'decimate':
-        if plan.decim_taps >= DECIM_FFT_MIN_TAPS:
-            return (fftstage.spectrum(plan.decim_coeffs, dtype, device),)
-        period = (PALLAS_DECIM_PERIOD if device.type == 'cuda'
-                  else DECIM_PERIOD)
-        r, _, ipx = _decim_matrix(plan, period)
-        return _banded_aux(r, ipx, dtype, device, tier)
-    # two_stage
-    if plan.is_rational_exact:
-        r, _, ipx, lam = _fused_rational_matrix(plan)
-        r, ipx = superframe(r, ipx)
-        return _banded_aux(r, ipx, dtype, device, tier, lam)
-    aux = _upload(_general_matrices(plan, canonical), dtype, device)
-    if not plan.aa_taps:
-        return aux
-    if plan.aa_taps >= FFT_CONV_MIN_TAPS:
-        return aux + (fftstage.spectrum(plan.aa_coeffs, dtype, device),
-                      None)
-    h = torch.as_tensor(plan.aa_coeffs, dtype=dtype, device=device)[None, :]
-    if device.type != 'cuda':
-        return aux + (h, None)
-    # The prefilter reads xext = (0^d x 0^(d+z)), as _oneshot_apply pads.
-    n_ext = n + 2 * ((plan.aa_taps - 1) // 2) + plan.lengths.flush_pad(n)
-    return aux + (h, convolve.band_operator(h, n_ext, 1, dtype, device,
-                                            tier))
+            return aux + (h, None)
+        # The prefilter reads xext = (0^d x 0^(d+z)), as _oneshot_apply pads.
+        n_ext = n + 2 * ((plan.aa_taps - 1) // 2) + plan.lengths.flush_pad(n)
+        return aux + (h, convolve.band_operator(h, n_ext, 1, dtype, device,
+                                                tier))
 
 
 def _oneshot_apply(plan: EnginePlan, x: torch.Tensor, aux,
@@ -539,57 +557,58 @@ def _oneshot_apply(plan: EnginePlan, x: torch.Tensor, aux,
     and device, ``aux`` from :func:`_oneshot_aux` for the same plan, n,
     dtype, device and resolved ``tier``."""
     check_tier(tier)
-    n = x.shape[1]
-    lm = plan.lengths
-    canonical = lm.canonical(n)
-    if canonical <= 0 or n == 0:
-        return x.new_zeros((x.shape[0], max(canonical, 0)))
-    z = lm.flush_pad(n)
+    with span(ONESHOT_APPLY):
+        n = x.shape[1]
+        lm = plan.lengths
+        canonical = lm.canonical(n)
+        if canonical <= 0 or n == 0:
+            return x.new_zeros((x.shape[0], max(canonical, 0)))
+        z = lm.flush_pad(n)
 
-    if plan.kind == 'cubic':
-        w_band = int(aux[1].shape[1])
-        i_last = ((canonical - 1) * plan.cubic_step) >> CubicSim.FRAC_BITS
-        histbuf = _pad(x, 3, max(0, i_last + w_band + 1 - (n + 3)))
-        # Tile starts are <= the last window index; i_last bounds them.
-        return _banded_tiles_apply(histbuf, aux, i_last, canonical, tier)
+        if plan.kind == 'cubic':
+            w_band = int(aux[1].shape[1])
+            i_last = ((canonical - 1) * plan.cubic_step) >> CubicSim.FRAC_BITS
+            histbuf = _pad(x, 3, max(0, i_last + w_band + 1 - (n + 3)))
+            # Tile starts are <= the last window index; i_last bounds them.
+            return _banded_tiles_apply(histbuf, aux, i_last, canonical, tier)
 
-    if plan.kind == 'dft_up':
-        if plan.factor == 1:
-            return x  # unity ratio: pass-through (dft_stage.go:57-59)
+        if plan.kind == 'dft_up':
+            if plan.factor == 1:
+                return x  # unity ratio: pass-through (dft_stage.go:57-59)
+            xext = _pad(x, plan.pre_taps - 1, z)
+            u = prestage_apply(aux[0], xext, plan.factor, tier, band=aux[1])
+            drop = lm.drop_prefix()
+            return u[:, drop:drop + canonical]
+
+        if plan.kind == 'decimate':
+            # windows at j*M over (x 0^z ...): the canonical grid
+            need = (canonical - 1) * plan.factor + plan.decim_taps
+            xs = _pad(x, 0, max(z, need - n))
+            if isinstance(aux[0], fftstage.Spectrum):
+                return fftstage._fft_decimate(plan, xs, canonical, aux[0])
+            return _banded_apply(xs, canonical, aux, tier)
+
+        # two_stage
+        if plan.is_rational_exact:
+            return _banded_apply(x, canonical, aux, tier)
+        if plan.aa_taps:
+            # The strict-antialias prefilter: a delay-compensated 'same'
+            # lowpass at the input rate, extended over the flush padding:
+            # filter (x ++ 0^z), then continue with no further right padding.
+            # Prototypes of FFT_CONV_MIN_TAPS taps or more: FFT overlap-save.
+            d = (plan.aa_taps - 1) // 2
+            h, band = aux[4:]
+            xext = _pad(x, d, d + z)
+            if isinstance(h, fftstage.Spectrum):
+                x = fftstage.fft_correlate(xext, h, n + z)
+            else:
+                x = convolve.conv1d_poly(xext, h, stride=1, precision=tier,
+                                         band=band)[:, 0, :]
+            z = 0
+        # The prestage is composed into the banded tile matrices (x domain);
+        # the device never materializes the 2x intermediate stream.
         xext = _pad(x, plan.pre_taps - 1, z)
-        u = prestage_apply(aux[0], xext, plan.factor, tier, band=aux[1])
-        drop = lm.drop_prefix()
-        return u[:, drop:drop + canonical]
-
-    if plan.kind == 'decimate':
-        # windows at j*M over (x 0^z ...): the canonical grid
-        need = (canonical - 1) * plan.factor + plan.decim_taps
-        xs = _pad(x, 0, max(z, need - n))
-        if isinstance(aux[0], fftstage.Spectrum):
-            return fftstage._fft_decimate(plan, xs, canonical, aux[0])
-        return _banded_apply(xs, canonical, aux, tier)
-
-    # two_stage
-    if plan.is_rational_exact:
-        return _banded_apply(x, canonical, aux, tier)
-    if plan.aa_taps:
-        # The strict-antialias prefilter: a delay-compensated 'same'
-        # lowpass at the input rate, extended over the flush padding:
-        # filter (x ++ 0^z), then continue with no further right padding.
-        # Prototypes of FFT_CONV_MIN_TAPS taps or more: FFT overlap-save.
-        d = (plan.aa_taps - 1) // 2
-        h, band = aux[4:]
-        xext = _pad(x, d, d + z)
-        if isinstance(h, fftstage.Spectrum):
-            x = fftstage.fft_correlate(xext, h, n + z)
-        else:
-            x = convolve.conv1d_poly(xext, h, stride=1, precision=tier,
-                                     band=band)[:, 0, :]
-        z = 0
-    # The prestage is composed into the banded tile matrices (x domain);
-    # the device never materializes the 2x intermediate stream.
-    xext = _pad(x, plan.pre_taps - 1, z)
-    return _poly_apply_general(plan, xext, canonical, aux, tier)
+        return _poly_apply_general(plan, xext, canonical, aux, tier)
 
 
 def _entry_tensor(x, dtype, device, name: str) -> torch.Tensor:

@@ -66,6 +66,9 @@ from ..ops import _build, banded, convolve, fused
 from ..ops.precision import (DISPATCH_MODES, PRECISION_MODES, dispatch_for,
                              dot_precision)
 from ..pipeline.buffer import SampleFIFO
+from ..utils.spans import (ENGINE_D2H, ENGINE_EMIT, ENGINE_FIFO, ENGINE_H2D,
+                           ENGINE_PROCESS, ENGINE_PROCESS_DEVICE,
+                           ENGINE_STEP, span)
 from . import fftstage, stages
 from .oneshot import (DECIM_FFT_MIN_TAPS, FFT_CONV_MIN_TAPS, _decim_matrix,
                       _fused_rational_matrix, superframe)
@@ -844,10 +847,12 @@ class EngineCore:
     def _step(self, state, x):
         """One step of :meth:`core_fn` at the engine's current
         ``dispatch``."""
-        return self.core_fn()(state, x)
+        with span(ENGINE_STEP):
+            return self.core_fn()(state, x)
 
     def _to_device(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+        with span(ENGINE_H2D):
+            return torch.as_tensor(x, dtype=self.dtype, device=self.device)
 
     # -- streaming API -----------------------------------------------------
 
@@ -883,10 +888,13 @@ class EngineCore:
         """Stream raw samples through the prefilter, one block a step (K1
         on the card, reading the engine's operator); return the centered
         (delay-compensated) filtered samples now available."""
-        self._aa_raw.write(x)
+        with span(ENGINE_FIFO):
+            self._aa_raw.write(x)
         outs = []
         while self._aa_raw.available() >= self.block:
-            blk = self._to_device(self._aa_raw.read(self.block))
+            with span(ENGINE_FIFO):
+                blk = self._aa_raw.read(self.block)
+            blk = self._to_device(blk)
             if self._aa_spec is not None:
                 self._aa_carry, y = _fir_fft_step(self._aa_spec,
                                                   self._aa_carry, blk)
@@ -894,7 +902,8 @@ class EngineCore:
                 self._aa_carry, y = stages.fir_process(
                     self._aa_coeffs, self._aa_carry, blk, self._tier,
                     band=self._aa_band)
-            outs.append(y.cpu().numpy())
+            with span(ENGINE_D2H):
+                outs.append(y.cpu().numpy())
         if not outs:
             return np.zeros((self.batch, 0), dtype=self.np_dtype)
         y = np.concatenate(outs, axis=1)
@@ -975,7 +984,8 @@ class EngineCore:
 
     def _run_block(self, block_np: np.ndarray) -> np.ndarray:
         self.state, y, n = self._step(self.state, self._to_device(block_np))
-        return y[:, :n].cpu().numpy()
+        with span(ENGINE_D2H):
+            return y[:, :n].cpu().numpy()
 
     def _drop(self) -> int:
         """Leading core outputs the wrapper drops: the fused steps' ramp,
@@ -986,21 +996,22 @@ class EngineCore:
 
     def _emit(self, core_out: np.ndarray, limit: int | None) -> np.ndarray:
         """Apply the transient-prefix drop and the canonical limit."""
-        drop = self._drop()
-        start = 0
-        if self._core_emitted < drop:
-            start = min(drop - self._core_emitted, core_out.shape[1])
-        self._core_emitted += core_out.shape[1]
-        out = core_out[:, start:]
-        if limit is not None:
-            room = limit - self.samples_out
-            out = out[:, :max(room, 0)]
-        head = self._head_rows(out.shape[1])
-        if head is not None:
-            out = np.array(out)
-            out[:, :head.shape[1]] = head.cpu().numpy()
-        self.samples_out += out.shape[1]
-        return out
+        with span(ENGINE_EMIT):
+            drop = self._drop()
+            start = 0
+            if self._core_emitted < drop:
+                start = min(drop - self._core_emitted, core_out.shape[1])
+            self._core_emitted += core_out.shape[1]
+            out = core_out[:, start:]
+            if limit is not None:
+                room = limit - self.samples_out
+                out = out[:, :max(room, 0)]
+            head = self._head_rows(out.shape[1])
+            if head is not None:
+                out = np.array(out)
+                out[:, :head.shape[1]] = head.cpu().numpy()
+            self.samples_out += out.shape[1]
+            return out
 
     def process(self, x: np.ndarray) -> np.ndarray:
         """Resample a chunk; returns all output currently available.
@@ -1010,28 +1021,35 @@ class EngineCore:
         the tail is held until more input or flush), but the concatenated
         stream is canonical.
         """
-        if self._flushed:
-            raise RuntimeError("process() after flush(); call reset() first")
-        x = np.asarray(x, dtype=self.np_dtype)
-        if x.ndim == 1:
-            x = np.broadcast_to(x, (self.batch, x.shape[0])) if self.batch > 1 \
-                else x[None, :]
-        if x.shape[0] != self.batch:
-            raise ValueError(f"expected {self.batch} streams, got {x.shape[0]}")
-        self.samples_in += x.shape[1]
-        if self._head_t is not None:
-            self._collect_head(x)
-        if self._has_aa:
-            x = self._aa_push(x)
-        self._pending.write(x)
-        outs = []
-        while self._pending.available() >= self.block:
-            k = min(self.SCAN_BLOCKS, self._pending.available() // self.block)
-            blk = self._pending.read(k * self.block)
-            outs.append(self._emit(self._run_block(blk), None))
-        if outs:
-            return np.concatenate(outs, axis=1)
-        return np.zeros((self.batch, 0), dtype=self.np_dtype)
+        with span(ENGINE_PROCESS):
+            if self._flushed:
+                raise RuntimeError(
+                    "process() after flush(); call reset() first")
+            x = np.asarray(x, dtype=self.np_dtype)
+            if x.ndim == 1:
+                x = (np.broadcast_to(x, (self.batch, x.shape[0]))
+                     if self.batch > 1 else x[None, :])
+            if x.shape[0] != self.batch:
+                raise ValueError(
+                    f"expected {self.batch} streams, got {x.shape[0]}")
+            self.samples_in += x.shape[1]
+            if self._head_t is not None:
+                self._collect_head(x)
+            if self._has_aa:
+                x = self._aa_push(x)
+            with span(ENGINE_FIFO):
+                self._pending.write(x)
+            outs = []
+            while self._pending.available() >= self.block:
+                k = min(self.SCAN_BLOCKS,
+                        self._pending.available() // self.block)
+                with span(ENGINE_FIFO):
+                    blk = self._pending.read(k * self.block)
+                outs.append(self._emit(self._run_block(blk), None))
+            if outs:
+                with span(ENGINE_EMIT):
+                    return np.concatenate(outs, axis=1)
+            return np.zeros((self.batch, 0), dtype=self.np_dtype)
 
     # -- device-resident streaming (serving / ML-ingest path) ---------------
 
@@ -1067,21 +1085,22 @@ class EngineCore:
         host path's (:meth:`_head_rows`, float64 then cast), so both
         routes give the same bits.
         """
-        drop = self._drop()
-        start = 0
-        if self._core_emitted < drop:
-            start = min(drop - self._core_emitted, n_out)
-        self._core_emitted += n_out
-        out = core_out[:, start:n_out]
-        if limit is not None:
-            room = limit - self.samples_out
-            out = out[:, :max(room, 0)]
-        head = self._head_rows(out.shape[1])
-        if head is not None:
-            out = torch.cat([head.to(self.dtype), out[:, head.shape[1]:]],
-                            dim=1)
-        self.samples_out += out.shape[1]
-        return out
+        with span(ENGINE_EMIT):
+            drop = self._drop()
+            start = 0
+            if self._core_emitted < drop:
+                start = min(drop - self._core_emitted, n_out)
+            self._core_emitted += n_out
+            out = core_out[:, start:n_out]
+            if limit is not None:
+                room = limit - self.samples_out
+                out = out[:, :max(room, 0)]
+            head = self._head_rows(out.shape[1])
+            if head is not None:
+                out = torch.cat([head.to(self.dtype), out[:, head.shape[1]:]],
+                                dim=1)
+            self.samples_out += out.shape[1]
+            return out
 
     def process_device(self, x) -> torch.Tensor:
         """Resample a chunk on the device; returns a tensor there.
@@ -1094,37 +1113,41 @@ class EngineCore:
         :attr:`device_chunk_multiple`.  May be mixed with :meth:`process`
         whenever no host-side input is buffered there.
         """
-        mult = self.device_chunk_multiple
-        if mult is None:
-            raise NotImplementedError(
-                f"process_device: topology {self.plan.kind!r} has "
-                "data-dependent output counts; use process()")
-        if self._flushed:
-            raise RuntimeError("process() after flush(); call reset() first")
-        if self._pending.available():
-            raise RuntimeError(
-                "process_device: host-buffered input pending from a prior "
-                "process() call; feed block multiples there, or reset()")
-        x = self._to_device(x)
-        if x.dim() == 1:
-            x = (x.expand(self.batch, x.shape[0]) if self.batch > 1
-                 else x[None, :])
-        if x.shape[0] != self.batch:
-            raise ValueError(f"expected {self.batch} streams, got {x.shape[0]}")
-        n = int(x.shape[1])
-        if n % mult:
-            raise ValueError(
-                f"process_device chunk width {n} is not a multiple of "
-                f"device_chunk_multiple={mult}")
-        if n == 0:
-            return torch.zeros((self.batch, 0), dtype=self.dtype,
-                               device=self.device)
-        self.samples_in += n
-        if self._head_t is not None:
-            self._collect_head(x)
-        self.state, y, _n = self._step(self.state, x)
-        ipx, p2 = self._device_params()
-        return self._emit_device(y, (n // ipx) * p2, None)
+        with span(ENGINE_PROCESS_DEVICE):
+            mult = self.device_chunk_multiple
+            if mult is None:
+                raise NotImplementedError(
+                    f"process_device: topology {self.plan.kind!r} has "
+                    "data-dependent output counts; use process()")
+            if self._flushed:
+                raise RuntimeError(
+                    "process() after flush(); call reset() first")
+            if self._pending.available():
+                raise RuntimeError(
+                    "process_device: host-buffered input pending from a "
+                    "prior process() call; feed block multiples there, or "
+                    "reset()")
+            x = self._to_device(x)
+            if x.dim() == 1:
+                x = (x.expand(self.batch, x.shape[0]) if self.batch > 1
+                     else x[None, :])
+            if x.shape[0] != self.batch:
+                raise ValueError(
+                    f"expected {self.batch} streams, got {x.shape[0]}")
+            n = int(x.shape[1])
+            if n % mult:
+                raise ValueError(
+                    f"process_device chunk width {n} is not a multiple of "
+                    f"device_chunk_multiple={mult}")
+            if n == 0:
+                return torch.zeros((self.batch, 0), dtype=self.dtype,
+                                   device=self.device)
+            self.samples_in += n
+            if self._head_t is not None:
+                self._collect_head(x)
+            self.state, y, _n = self._step(self.state, x)
+            ipx, p2 = self._device_params()
+            return self._emit_device(y, (n // ipx) * p2, None)
 
     def flush_device(self) -> torch.Tensor:
         """Drain all stage tails on the device; returns a tensor there.

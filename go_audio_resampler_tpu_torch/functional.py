@@ -47,6 +47,7 @@ from .engine.stages import CubicState, PolyState, PrestageState
 from .engine.streaming import CAP_LIMIT, _torch_dtype
 from .ops import convolve
 from .ops.precision import dot_precision, force_xla
+from .utils.spans import FUNCTIONAL_RESAMPLE, span
 
 
 def _needs_length_matrices(plan: EnginePlan) -> bool:
@@ -227,29 +228,30 @@ def resample(x, input_rate: float, output_rate: float, *,
       float type (else in the compute dtype).  float32 products run at
       the process-wide tier ``GAR_TPU_MATMUL_PRECISION``, read per call.
     """
-    plan = _plan(float(input_rate), float(output_rate), quality, hq_interp)
-    x = torch.as_tensor(x)
-    if x.dim() == 0:
-        raise ValueError("resample expects at least one axis of samples")
-    device = torch.device(device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError("resample: CUDA is not available; pass "
-                           "device='cpu' to run on the CPU")
-    if dtype is None:
-        # The card's type (api.default_dtype); on the CPU the input's
-        # float type, as the JAX package takes it, else float32.
-        dtype = (x.dtype if device.type == 'cpu'
-                 and x.dtype in (torch.float32, torch.float64)
-                 else torch.float32)
-    dtype = _torch_dtype(dtype)
-    if device.type == 'cuda' and dtype != torch.float32:
-        raise ValueError("resample: the card computes float32; float64 "
-                         "runs on device='cpu'")
-    lead = tuple(x.shape[:-1])
-    n = int(x.shape[-1])
-    x2 = x.reshape((int(np.prod(lead, dtype=np.int64)) if lead else 1, n))
-    y2 = _LinearOp.apply(x2.to(device=device, dtype=dtype), plan,
-                         dot_precision(None))
-    if x.is_floating_point():
-        y2 = y2.to(x.dtype)
-    return y2.reshape(lead + (y2.shape[-1],))
+    with span(FUNCTIONAL_RESAMPLE):
+        plan = _plan(float(input_rate), float(output_rate), quality, hq_interp)
+        x = torch.as_tensor(x)
+        if x.dim() == 0:
+            raise ValueError("resample expects at least one axis of samples")
+        device = torch.device(device)
+        if device.type == 'cuda' and not torch.cuda.is_available():
+            raise RuntimeError("resample: CUDA is not available; pass "
+                               "device='cpu' to run on the CPU")
+        if dtype is None:
+            # The card's type (api.default_dtype); on the CPU the input's
+            # float type, as the JAX package takes it, else float32.
+            dtype = (x.dtype if device.type == 'cpu'
+                     and x.dtype in (torch.float32, torch.float64)
+                     else torch.float32)
+        dtype = _torch_dtype(dtype)
+        if device.type == 'cuda' and dtype != torch.float32:
+            raise ValueError("resample: the card computes float32; float64 "
+                             "runs on device='cpu'")
+        lead = tuple(x.shape[:-1])
+        n = int(x.shape[-1])
+        x2 = x.reshape((int(np.prod(lead, dtype=np.int64)) if lead else 1, n))
+        y2 = _LinearOp.apply(x2.to(device=device, dtype=dtype), plan,
+                             dot_precision(None))
+        if x.is_floating_point():
+            y2 = y2.to(x.dtype)
+        return y2.reshape(lead + (y2.shape[-1],))

@@ -33,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.spans import BANDED_PREPARE, span
 from .precision import check_tier, split_bf16
 
 #: taps per k-step of the bands (one TF32 wgmma k8; half a bf16 k16)
@@ -183,15 +184,16 @@ def prepare(r_t: torch.Tensor, tier: str) -> BandedOperator:
     if r_t.dtype != torch.float32:
         raise TypeError(f"prepare: the kernels take float32, got {r_t.dtype}")
     check_tier(tier)
-    wx, p2 = r_t.shape
-    if tier == 'highest':
-        packed = pack_fragments(*split_limbs(r_t.contiguous()))
-    else:
-        hi, lo = split_bf16(r_t.contiguous())
-        packed = pack_bf16([hi, lo] if tier == 'high' else [hi])
-    bands = band_table(r_t)
-    return BandedOperator(packed, bands.to(r_t.device), choose_split(bands),
-                          wx, p2, tier)
+    with span(BANDED_PREPARE):
+        wx, p2 = r_t.shape
+        if tier == 'highest':
+            packed = pack_fragments(*split_limbs(r_t.contiguous()))
+        else:
+            hi, lo = split_bf16(r_t.contiguous())
+            packed = pack_bf16([hi, lo] if tier == 'high' else [hi])
+        bands = band_table(r_t)
+        return BandedOperator(packed, bands.to(r_t.device),
+                              choose_split(bands), wx, p2, tier)
 
 
 def prepare_on_card(r_t: torch.Tensor, tier: str) -> BandedOperator | None:

@@ -31,6 +31,7 @@ import functools
 
 import torch
 
+from ..utils.spans import K1, span
 from . import _build
 from .banded import BandedOperator, resolve
 from .frames import gather_windows
@@ -95,36 +96,39 @@ def fused_resample(data: torch.Tensor, r_t: torch.Tensor, *, ipx: int,
     global launches
     _check(data, r_t, ipx, wx, p2, n_frames)
     check_tier(tier)
-    if data.device.type == "cpu" and r_t.device.type == "cpu":
-        return fused_resample_reference(data, r_t, ipx=ipx, wx=wx, p2=p2,
-                                        n_frames=n_frames, tier=tier)
-    if data.device.type != "cuda" or r_t.device != data.device:
-        raise ValueError(f"fused_resample: data on {data.device} and r_t on "
-                         f"{r_t.device}; both must be on one CUDA device "
-                         "(or both on the CPU)")
-    if data.dtype != torch.float32 or r_t.dtype != torch.float32:
-        raise TypeError(f"fused_resample: the CUDA kernel takes float32, got "
-                        f"data {data.dtype} and r_t {r_t.dtype}")
-    if not (data.is_contiguous() and r_t.is_contiguous()):
-        raise ValueError("fused_resample: data and r_t must be contiguous")
-    s = data.shape[0]
-    y = torch.empty((s, n_frames * p2), dtype=torch.float32,
-                    device=data.device)
-    if y.numel() == 0:
+    with span(K1):
+        if data.device.type == "cpu" and r_t.device.type == "cpu":
+            return fused_resample_reference(data, r_t, ipx=ipx, wx=wx, p2=p2,
+                                            n_frames=n_frames, tier=tier)
+        if data.device.type != "cuda" or r_t.device != data.device:
+            raise ValueError(f"fused_resample: data on {data.device} and r_t "
+                             f"on {r_t.device}; both must be on one CUDA "
+                             "device (or both on the CPU)")
+        if data.dtype != torch.float32 or r_t.dtype != torch.float32:
+            raise TypeError(f"fused_resample: the CUDA kernel takes float32, "
+                            f"got data {data.dtype} and r_t {r_t.dtype}")
+        if not (data.is_contiguous() and r_t.is_contiguous()):
+            raise ValueError("fused_resample: data and r_t must be contiguous")
+        s = data.shape[0]
+        y = torch.empty((s, n_frames * p2), dtype=torch.float32,
+                        device=data.device)
+        if y.numel() == 0:
+            return y
+        op = resolve(op, r_t, "fused_resample", tier)
+        fn = _launcher()
+        with torch.cuda.device(data.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(data.data_ptr(), data.stride(0), op.packed.data_ptr(),
+                     op.bands.data_ptr(), y.data_ptr(), s * n_frames,
+                     n_frames, ipx, wx, p2, op.split, TIER_CODES[tier],
+                     stream)
+        if err:
+            raise RuntimeError(f"fused_resample: kernel launch failed with "
+                               f"CUDA error {err} (S={s}, "
+                               f"n_frames={n_frames}, ipx={ipx}, wx={wx}, "
+                               f"p2={p2}, tier={tier})")
+        launches += 1
         return y
-    op = resolve(op, r_t, "fused_resample", tier)
-    fn = _launcher()
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(data.data_ptr(), data.stride(0), op.packed.data_ptr(),
-                 op.bands.data_ptr(), y.data_ptr(), s * n_frames, n_frames,
-                 ipx, wx, p2, op.split, TIER_CODES[tier], stream)
-    if err:
-        raise RuntimeError(f"fused_resample: kernel launch failed with CUDA "
-                           f"error {err} (S={s}, n_frames={n_frames}, "
-                           f"ipx={ipx}, wx={wx}, p2={p2}, tier={tier})")
-    launches += 1
-    return y
 
 
 @functools.cache

@@ -37,6 +37,7 @@ import functools
 
 import torch
 
+from ..utils.spans import K3, span
 from . import _build
 from .frames import gather_windows_at
 from .precision import TIER_CODES, check_tier, tiered_matmul
@@ -197,47 +198,48 @@ def general_resample(x: torch.Tensor, m_t: torch.Tensor,
     global launches
     _check(x, m_t, starts, w_band, tile)
     check_tier(tier)
-    devices = {x.device, m_t.device, starts.device}
-    if devices == {torch.device("cpu")}:
-        return general_resample_reference(x, m_t, starts, w_band=w_band,
-                                          tile=tile, tier=tier)
-    if len(devices) != 1 or x.device.type != "cuda":
-        raise ValueError(f"general_resample: x on {x.device}, m_t on "
-                         f"{m_t.device}, starts on {starts.device}; all must "
-                         "be on one CUDA device (or all on the CPU)")
-    if x.dtype != torch.float32 or m_t.dtype != torch.float32:
-        raise TypeError(f"general_resample: the CUDA kernel takes float32, "
-                        f"got x {x.dtype} and m_t {m_t.dtype}")
-    if not (x.is_contiguous() and m_t.is_contiguous()
-            and starts.is_contiguous()):
-        raise ValueError(
-            "general_resample: x, m_t and starts must be contiguous")
-    bands = check_bands(bands, m_t)
-    if warpgroups not in (1, 2):
-        raise ValueError(f"general_resample: warpgroups must be 1 or 2, "
-                         f"got {warpgroups}")
-    s, n = x.shape
-    n_tiles = m_t.shape[0]
-    y = torch.empty((s, n_tiles * tile), dtype=torch.float32,
-                    device=x.device)
-    if y.numel() == 0:
+    with span(K3):
+        devices = {x.device, m_t.device, starts.device}
+        if devices == {torch.device("cpu")}:
+            return general_resample_reference(x, m_t, starts, w_band=w_band,
+                                              tile=tile, tier=tier)
+        if len(devices) != 1 or x.device.type != "cuda":
+            raise ValueError(f"general_resample: x on {x.device}, m_t on "
+                             f"{m_t.device}, starts on {starts.device}; all "
+                             "must be on one CUDA device (or all on the CPU)")
+        if x.dtype != torch.float32 or m_t.dtype != torch.float32:
+            raise TypeError(f"general_resample: the CUDA kernel takes "
+                            f"float32, got x {x.dtype} and m_t {m_t.dtype}")
+        if not (x.is_contiguous() and m_t.is_contiguous()
+                and starts.is_contiguous()):
+            raise ValueError(
+                "general_resample: x, m_t and starts must be contiguous")
+        bands = check_bands(bands, m_t)
+        if warpgroups not in (1, 2):
+            raise ValueError(f"general_resample: warpgroups must be 1 or 2, "
+                             f"got {warpgroups}")
+        s, n = x.shape
+        n_tiles = m_t.shape[0]
+        y = torch.empty((s, n_tiles * tile), dtype=torch.float32,
+                        device=x.device)
+        if y.numel() == 0:
+            return y
+        if n == 0:
+            return y.zero_()
+        fn = _launcher()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(x.data_ptr(), x.stride(0), n, starts.data_ptr(),
+                     int(starts.dtype == torch.int64), m_t.data_ptr(),
+                     m_t.shape[1], bands.data_ptr(), y.data_ptr(), n_tiles, s,
+                     w_band, tile, warpgroups, TIER_CODES[tier], stream)
+        if err:
+            raise RuntimeError(
+                f"general_resample: kernel launch failed with CUDA error "
+                f"{err} (S={s}, n={n}, n_tiles={n_tiles}, w_band={w_band}, "
+                f"tile={tile}, tier={tier})")
+        launches += 1
         return y
-    if n == 0:
-        return y.zero_()
-    fn = _launcher()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), x.stride(0), n, starts.data_ptr(),
-                 int(starts.dtype == torch.int64), m_t.data_ptr(),
-                 m_t.shape[1], bands.data_ptr(), y.data_ptr(), n_tiles, s,
-                 w_band, tile, warpgroups, TIER_CODES[tier], stream)
-    if err:
-        raise RuntimeError(
-            f"general_resample: kernel launch failed with CUDA error {err} "
-            f"(S={s}, n={n}, n_tiles={n_tiles}, w_band={w_band}, "
-            f"tile={tile}, tier={tier})")
-    launches += 1
-    return y
 
 
 @functools.cache

@@ -29,6 +29,7 @@ import functools
 
 import torch
 
+from ..utils.spans import K2, span
 from . import _build
 from .banded import BandedOperator, resolve
 from .precision import TIER_CODES, check_tier, tiered_matmul
@@ -96,37 +97,39 @@ def fused_resample_tmajor(xt: torch.Tensor, r: torch.Tensor, *, ipx: int,
     global launches
     _check(xt, r, ipx, wx, p2, n_frames)
     check_tier(tier)
-    if xt.device.type == "cpu" and r.device.type == "cpu":
-        return fused_resample_tmajor_reference(xt, r, ipx=ipx, wx=wx, p2=p2,
-                                               n_frames=n_frames, tier=tier)
-    if xt.device.type != "cuda" or r.device != xt.device:
-        raise ValueError(f"fused_resample_tmajor: xt on {xt.device} and r on "
-                         f"{r.device}; both must be on one CUDA device (or "
-                         "both on the CPU)")
-    if xt.dtype != torch.float32 or r.dtype != torch.float32:
-        raise TypeError(f"fused_resample_tmajor: the CUDA kernel takes "
-                        f"float32, got xt {xt.dtype} and r {r.dtype}")
-    if not (xt.is_contiguous() and r.is_contiguous()):
-        raise ValueError("fused_resample_tmajor: xt and r must be contiguous")
-    s = xt.shape[1]
-    y = torch.empty((n_frames * p2, s), dtype=torch.float32,
-                    device=xt.device)
-    if y.numel() == 0:
+    with span(K2):
+        if xt.device.type == "cpu" and r.device.type == "cpu":
+            return fused_resample_tmajor_reference(
+                xt, r, ipx=ipx, wx=wx, p2=p2, n_frames=n_frames, tier=tier)
+        if xt.device.type != "cuda" or r.device != xt.device:
+            raise ValueError(f"fused_resample_tmajor: xt on {xt.device} and "
+                             f"r on {r.device}; both must be on one CUDA "
+                             "device (or both on the CPU)")
+        if xt.dtype != torch.float32 or r.dtype != torch.float32:
+            raise TypeError(f"fused_resample_tmajor: the CUDA kernel takes "
+                            f"float32, got xt {xt.dtype} and r {r.dtype}")
+        if not (xt.is_contiguous() and r.is_contiguous()):
+            raise ValueError(
+                "fused_resample_tmajor: xt and r must be contiguous")
+        s = xt.shape[1]
+        y = torch.empty((n_frames * p2, s), dtype=torch.float32,
+                        device=xt.device)
+        if y.numel() == 0:
+            return y
+        op = resolve(op, r.t(), "fused_resample_tmajor", tier)
+        fn = _launcher()
+        with torch.cuda.device(xt.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(xt.data_ptr(), xt.stride(0), op.packed.data_ptr(),
+                     op.bands.data_ptr(), y.data_ptr(), n_frames, s, ipx, wx,
+                     p2, op.split, TIER_CODES[tier], stream)
+        if err:
+            raise RuntimeError(
+                f"fused_resample_tmajor: kernel launch failed with CUDA "
+                f"error {err} (S={s}, n_frames={n_frames}, ipx={ipx}, "
+                f"wx={wx}, p2={p2}, tier={tier})")
+        launches += 1
         return y
-    op = resolve(op, r.t(), "fused_resample_tmajor", tier)
-    fn = _launcher()
-    with torch.cuda.device(xt.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xt.data_ptr(), xt.stride(0), op.packed.data_ptr(),
-                 op.bands.data_ptr(), y.data_ptr(), n_frames, s, ipx, wx, p2,
-                 op.split, TIER_CODES[tier], stream)
-    if err:
-        raise RuntimeError(
-            f"fused_resample_tmajor: kernel launch failed with CUDA error "
-            f"{err} (S={s}, n_frames={n_frames}, ipx={ipx}, wx={wx}, "
-            f"p2={p2}, tier={tier})")
-    launches += 1
-    return y
 
 
 @functools.cache
