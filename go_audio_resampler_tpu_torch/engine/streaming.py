@@ -79,6 +79,14 @@ from .stages import CubicState, PolyState, PrestageState
 #: cap stays below 2^15, so that j * (a 16-bit limb) stays below 2^31.
 CAP_LIMIT = 32767
 
+#: Steps of ``EngineCore.process`` and ``flush`` whose block went up and
+#: whose output came down through the engine's pinned host buffers (a
+#: plain integer; callers may reset it to 0).
+staged_steps = 0
+#: Blocks that ``EngineCore.process`` staged straight from the caller's
+#: array, past its input FIFO (a plain integer; callers may reset it to 0).
+fifo_bypass_blocks = 0
+
 
 def _check_knobs(dispatch: str, precision: str) -> str:
     """``dispatch`` and ``precision`` checked as the JAX engine checks
@@ -199,6 +207,20 @@ def _fft_decim_step(spec: fftstage.Spectrum, factor: int, carry, x):
     data = torch.cat([carry.to(x.dtype), x], dim=1)
     f = fftstage.fft_correlate(data, spec, (n_frames - 1) * factor + 1)
     return data[:, b:].contiguous(), f[:, ::factor][:, :n_frames], n_frames
+
+
+def _host_copy(dst: np.ndarray, src) -> None:
+    """``dst[...] = src`` on the host (``src`` a numpy array or a CPU
+    tensor) by PyTorch's copy, which spreads a large copy over its threads
+    where numpy's runs on one.  numpy copies the arrays PyTorch does not
+    wrap: a negative stride (a reversed view), a stride of part of an
+    element, and a read-only array (a broadcast mono input)."""
+    if isinstance(src, np.ndarray) and not (
+            src.flags.writeable
+            and all(s >= 0 and s % src.itemsize == 0 for s in src.strides)):
+        dst[...] = src
+    else:
+        torch.from_numpy(dst).copy_(torch.as_tensor(src))
 
 
 def _slope_measure(fns: dict, depths: tuple, iters: int = 5,
@@ -524,6 +546,10 @@ class EngineCore:
         self.dispatch = dispatch
         self.precision = precision
         self._tier = tier
+        # The host ends of process()'s and flush()'s copies, flat and
+        # allocated on their first step (_host_buffer); pinned on the card.
+        self._pinned = self.device.type == 'cuda'
+        self._stage_in = self._stage_out = None
         self._build_constants()
         #: What ``dispatch='tune'`` found (:meth:`_tune_dispatch`); None
         #: for any other dispatch.
@@ -982,10 +1008,51 @@ class EngineCore:
             raise ValueError(f"carry must be {want}, got {carry.shape}")
         self.state = self._to_device(carry)
 
-    def _run_block(self, block_np: np.ndarray) -> np.ndarray:
-        self.state, y, n = self._step(self.state, self._to_device(block_np))
+    def _host_buffer(self, attr: str, shape) -> tuple[torch.Tensor,
+                                                      np.ndarray]:
+        """The engine's staging buffer ``attr`` ('_stage_in' or
+        '_stage_out'): its first elements viewed as ``shape``, as a tensor
+        (pinned on the card) and as the numpy array over the same memory.
+        Allocated on first use, grown only for a larger step."""
+        n = shape[0] * shape[1]
+        buf = getattr(self, attr)
+        if buf is None or buf.numel() < n:
+            buf = torch.empty(n, dtype=self.dtype, pin_memory=self._pinned)
+            setattr(self, attr, buf)
+        t = buf[:n].view(shape)
+        return t, t.numpy()
+
+    def _stage_tail(self) -> torch.Tensor:
+        """A block of the flush staged: what the FIFO still holds, then
+        zeros."""
+        staged, buf = self._host_buffer('_stage_in', (self.batch, self.block))
+        n = self._pending.read_into(buf)
+        buf[:, n:] = 0
+        return staged
+
+    def _run_block(self, staged: torch.Tensor) -> np.ndarray:
+        """One step over the block in the input staging buffer; returns its
+        core outputs as a new array, written once: on the card from the
+        pinned output buffer, on the CPU from the step's output.  On the
+        card the H2D is asynchronous; the blocking D2H behind it on the
+        same stream is done before this returns, and with it every copy
+        that read the staging buffers, so the host may write them again."""
+        global staged_steps
+        with span(ENGINE_H2D):
+            x = torch.empty(staged.shape, dtype=self.dtype,
+                            device=self.device)
+            x.copy_(staged, non_blocking=self._pinned)
+        self.state, y, n = self._step(self.state, x)
         with span(ENGINE_D2H):
-            return y[:, :n].cpu().numpy()
+            y = y[:, :n]
+            if self._pinned:
+                y_host, _ = self._host_buffer('_stage_out', tuple(y.shape))
+                y_host.copy_(y)
+                staged_steps += 1
+                y = y_host
+            out = np.empty(tuple(y.shape), dtype=self.np_dtype)
+            _host_copy(out, y)
+            return out
 
     def _drop(self) -> int:
         """Leading core outputs the wrapper drops: the fused steps' ramp,
@@ -1020,7 +1087,12 @@ class EngineCore:
         differ from the reference (full micro-blocks are processed eagerly,
         the tail is held until more input or flush), but the concatenated
         stream is canonical.
+
+        Whole blocks of a call that finds the input FIFO empty go from
+        ``x`` straight into the engine's input staging buffer; the rest
+        waits in the FIFO.  The returned array is new and the caller's.
         """
+        global fifo_bypass_blocks
         with span(ENGINE_PROCESS):
             if self._flushed:
                 raise RuntimeError(
@@ -1038,17 +1110,28 @@ class EngineCore:
             if self._has_aa:
                 x = self._aa_push(x)
             with span(ENGINE_FIFO):
-                self._pending.write(x)
-            outs = []
-            while self._pending.available() >= self.block:
-                k = min(self.SCAN_BLOCKS,
-                        self._pending.available() // self.block)
+                direct = (0 if self._pending.available()
+                          else x.shape[1] // self.block * self.block)
+                self._pending.write(x[:, direct:])
+            outs, at = [], 0
+            # The FIFO holds less than a block while x's whole blocks go.
+            while (k := min(self.SCAN_BLOCKS,
+                            (direct - at + self._pending.available())
+                            // self.block)):
                 with span(ENGINE_FIFO):
-                    blk = self._pending.read(k * self.block)
-                outs.append(self._emit(self._run_block(blk), None))
+                    staged, buf = self._host_buffer(
+                        '_stage_in', (self.batch, k * self.block))
+                    if at < direct:
+                        _host_copy(buf, x[:, at:at + k * self.block])
+                        at += k * self.block
+                        fifo_bypass_blocks += k
+                    else:
+                        self._pending.read_into(buf)
+                outs.append(self._emit(self._run_block(staged), None))
             if outs:
                 with span(ENGINE_EMIT):
-                    return np.concatenate(outs, axis=1)
+                    return (outs[0] if len(outs) == 1
+                            else np.concatenate(outs, axis=1))
             return np.zeros((self.batch, 0), dtype=self.np_dtype)
 
     # -- device-resident streaming (serving / ML-ingest path) ---------------
@@ -1279,27 +1362,21 @@ class EngineCore:
             # (the same semantics as the fused matrix and the one-shot).
             self._pending.write(self._aa_drain(z))
             z = 0
-        rem = self._pending.available()
         # Feed remainder + z zeros, rounded up to whole blocks (extra zeros
         # only produce post-canonical samples, which the limit trims).
-        total_tail = rem + z
+        total_tail = self._pending.available() + z
         n_blocks = _ceil_div(total_tail, self.block) if total_tail else 0
-        tail = np.zeros((self.batch, n_blocks * self.block),
-                        dtype=self.np_dtype)
-        if rem:
-            tail[:, :rem] = self._pending.read_all()
         outs = []
-        for i in range(n_blocks):
-            blk = tail[:, i * self.block:(i + 1) * self.block]
-            outs.append(self._emit(self._run_block(blk), canonical_total))
+        for _ in range(n_blocks):
+            outs.append(self._emit(self._run_block(self._stage_tail()),
+                                   canonical_total))
         # The fused step's block-granular emission may need a few extra
         # zero blocks to reach the canonical count.  The bound is exact
         # (the core holds back at most its carry plus one window), so
         # anything beyond it is a length-model bug: fail loudly.
         guard, limit = 0, self._flush_extra_limit()
         while self.samples_out < canonical_total:
-            zeros_blk = np.zeros((self.batch, self.block), dtype=self.np_dtype)
-            outs.append(self._emit(self._run_block(zeros_blk),
+            outs.append(self._emit(self._run_block(self._stage_tail()),
                                    canonical_total))
             guard += 1
             if guard > limit:
@@ -1308,7 +1385,8 @@ class EngineCore:
                     f"({self.samples_out} < {canonical_total}) after "
                     f"{guard} extra blocks (limit {limit})")
         if outs:
-            return np.concatenate(outs, axis=1)
+            return (outs[0] if len(outs) == 1
+                    else np.concatenate(outs, axis=1))
         return np.zeros((self.batch, 0), dtype=self.np_dtype)
 
     # -- introspection (resample.go:339-355, resampler.go:342-353) ---------

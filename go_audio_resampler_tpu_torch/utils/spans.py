@@ -32,15 +32,19 @@ import torch
 ENGINE_PROCESS = "gar.engine.process"
 #: ``EngineCore.process_device``: one call, tensors on the engine's device.
 ENGINE_PROCESS_DEVICE = "gar.engine.process_device"
-#: The host FIFO's copies: ``SampleFIFO.write`` and each ``read``.
+#: The host FIFO's copies and a step's staging: ``SampleFIFO.write``, and
+#: each block's copy into the input staging buffer, from the FIFO or
+#: straight from the caller's array.
 ENGINE_FIFO = "gar.engine.fifo"
-#: ``EngineCore._to_device``: the host-to-device copy of a block.
+#: ``EngineCore._to_device`` and ``_run_block``: the host-to-device copy
+#: of a block.
 ENGINE_H2D = "gar.engine.h2d"
 #: ``EngineCore._step``: the step's host enqueue (the carry's ``cat``, the
 #: kernel launch, the slices).
 ENGINE_STEP = "gar.engine.step"
-#: A step's output copied back to numpy (``.cpu().numpy()``), with its
-#: wait for the step's kernels.
+#: A step's output copied back to numpy (``_run_block``: through the
+#: pinned output buffer on the card; the prefilter's ``.cpu().numpy()``),
+#: with its wait for the step's kernels.
 ENGINE_D2H = "gar.engine.d2h"
 #: The ramp drop and canonical limit (``_emit``, ``_emit_device``) and the
 #: ``np.concatenate`` of a call's outputs.

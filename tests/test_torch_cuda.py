@@ -29,6 +29,8 @@ from go_audio_resampler_tpu_torch.ops import (banded, convolve, fused,
 
 # engine/__init__ exports the function oneshot under the module's name.
 oneshot = importlib.import_module("go_audio_resampler_tpu_torch.engine.oneshot")
+streaming = importlib.import_module(
+    "go_audio_resampler_tpu_torch.engine.streaming")
 
 TOL = 2e-5
 PLANS = [(44100, 48000, Quality.HIGH), (48000, 44100, Quality.HIGH),
@@ -1230,3 +1232,93 @@ def test_device_peaks_knows_the_card(cuda):
     p = roofline.device_peaks()
     assert p["kind"] == torch.cuda.get_device_name(0)
     assert p["bf16_tflops"] > 0 and p["power_limit"]
+
+
+# -- process() through the engine's pinned buffers -------------------------------
+
+#: The media server's step: 1,344 streams of one 20 ms frame at 44.1 kHz.
+SERVE_STREAMS, SERVE_FRAME = 1344, 882
+
+
+def _frames(s, width, steps, seed):
+    return np.random.default_rng(seed).normal(
+        size=(s, width * steps)).astype(np.float32)
+
+
+def _frame(x, i):
+    return x[:, i * SERVE_FRAME:(i + 1) * SERVE_FRAME]
+
+
+@pytest.mark.cuda
+def test_process_at_the_serve_shape_equals_process_device(cuda):
+    """20 frames and the flush at 1,344 x 882: process(), each frame a whole
+    block past the FIFO and through the pinned buffers, gives the bits of
+    process_device(); every step is counted as staged, and each returned
+    array stays as it was through the later steps."""
+    plan = plan_engine(*PLANS[0])
+    kw = dict(batch=SERVE_STREAMS, block=SERVE_FRAME)
+    host, dev = EngineCore(plan, **kw), EngineCore(plan, **kw)
+    assert host.block == SERVE_FRAME and host._stage_in is None
+    x = _frames(SERVE_STREAMS, SERVE_FRAME, 20, 40)
+    streaming.staged_steps = streaming.fifo_bypass_blocks = 0
+    before = fused.launches
+    outs = []
+    for i in range(20):
+        outs.append(host.process(_frame(x, i)))
+        if i:
+            assert not np.shares_memory(outs[-1], outs[-2])
+    kept = [y.copy() for y in outs]
+    outs.append(host.flush())
+    assert streaming.staged_steps == fused.launches - before > 20
+    assert streaming.fifo_bypass_blocks == 20
+    assert host._stage_in.is_pinned() and host._stage_out.is_pinned()
+    assert all(np.array_equal(y, k) for y, k in zip(outs, kept))
+    want = torch.cat([dev.process_device(torch.from_numpy(x).to(cuda)),
+                      dev.flush_device()], 1).cpu().numpy()
+    assert np.array_equal(np.concatenate(outs, 1), want)
+
+
+@pytest.mark.cuda
+def test_walk_process_past_and_through_the_fifo(cuda):
+    """The general walk on the card: whole blocks past the FIFO and chunks
+    through it give the same bits over 20 blocks and the flush, each step
+    staged."""
+    plan = plan_engine(*WALK)
+    a, b = EngineCore(plan, batch=256, block=2048), \
+        EngineCore(plan, batch=256, block=2048)
+    x = _frames(256, a.block, 20, 41)
+    streaming.staged_steps = 0
+    ya = [a.process(x[:, i * a.block:(i + 1) * a.block]) for i in range(20)]
+    kept = [y.copy() for y in ya]
+    ya.append(a.flush())
+    steps = streaming.staged_steps
+    assert steps > 20
+    cuts = list(range(0, x.shape[1], 1500)) + [x.shape[1]]
+    yb = [b.process(x[:, i:j]) for i, j in zip(cuts, cuts[1:])] + [b.flush()]
+    assert streaming.staged_steps > steps
+    assert all(np.array_equal(y, k) for y, k in zip(ya, kept))
+    assert np.array_equal(np.concatenate(ya, 1), np.concatenate(yb, 1))
+
+
+@pytest.mark.cuda
+def test_set_carry_then_process_at_once(cuda):
+    """A carry set and a block processed at once, with nothing between them,
+    give the bits of the same with the card synchronised between the two:
+    no staging buffer is written while a copy still reads it."""
+    plan = plan_engine(*PLANS[0])
+    kw = dict(batch=SERVE_STREAMS, block=SERVE_FRAME)
+    x = _frames(SERVE_STREAMS, SERVE_FRAME, 4, 42)
+    runs = []
+    for sync in (False, True):
+        eng = EngineCore(plan, **kw)
+        carry = np.random.default_rng(43).normal(
+            size=tuple(eng.state.shape)).astype(np.float32)
+        ys = []
+        for i in range(4):
+            eng.set_carry(carry * (i + 1))
+            if sync:
+                torch.cuda.synchronize()
+            ys.append(eng.process(_frame(x, i)))
+        ys.append(eng.flush())
+        runs.append(np.concatenate(ys, 1))
+    assert np.array_equal(*runs)

@@ -24,6 +24,8 @@ from go_audio_resampler_tpu.engine.streaming import EngineCore as JEngine
 from go_audio_resampler_tpu.filterdesign import Quality as JQuality
 import go_audio_resampler_tpu_torch as gart
 from go_audio_resampler_tpu_torch.engine import EngineCore, plan_from_arrays
+from go_audio_resampler_tpu_torch.engine.checkpoint import (
+    _state_leaves, load_stream_state, save_stream_state)
 from go_audio_resampler_tpu_torch.engine.plan import plan_engine
 from go_audio_resampler_tpu_torch.filterdesign import Quality
 from go_audio_resampler_tpu_torch.ops import fused
@@ -196,6 +198,107 @@ def test_chunking_invariance():
     _close(ya, yb, dtype)
 
 
+#: name -> the widths of successive process() calls, given the engine's
+#: block b: whole blocks into an empty FIFO, chunks that keep the FIFO
+#: filled, more whole blocks in one call than SCAN_BLOCKS, and a mix.
+CHUNKINGS = {
+    "whole_blocks": lambda b: [b, 2 * b, b, 3 * b],
+    "block_minus_1": lambda b: [b - 1] * 7,
+    "one_sample": lambda b: [1] * (b + 3),
+    "three_blocks_and_7": lambda b: [3 * b + 7] * 3,
+    "past_scan_blocks": lambda b: [(EngineCore.SCAN_BLOCKS + 3) * b + 5,
+                                   2 * b - 5, b],
+    "mix": lambda b: [b, 5, b - 5, 2 * b, 1, 0, 3 * b + 7, b - 8, 4 * b],
+}
+
+
+def _bypassed_blocks(widths, block):
+    """The whole blocks of the calls that find the input FIFO empty."""
+    fill, n = 0, 0
+    for w in widths:
+        if not fill:
+            n += w // block
+        fill = (fill + w) % block
+    return n
+
+
+def _run_widths(te, x, widths, start=0, save_at=None):
+    """process() over ``widths`` of ``x`` from ``start``, then flush();
+    returns the outputs and, where ``save_at`` is a path, the number of
+    calls up to the first that bypassed the FIFO, with the engine's state
+    saved there after it."""
+    outs, at, saved = [], start, None
+    for i, w in enumerate(widths):
+        before = streaming.fifo_bypass_blocks
+        outs.append(te.process(x[:, at:at + w]))
+        at += w
+        if (save_at is not None and saved is None
+                and streaming.fifo_bypass_blocks > before):
+            save_stream_state(te, save_at)
+            saved = i + 1
+    outs.append(te.flush())
+    return outs, saved
+
+
+@pytest.mark.parametrize("rates_q", [PLANS[0], WALK_PLANS[0]],
+                         ids=["banded", "walk"])
+@pytest.mark.parametrize("chunking", sorted(CHUNKINGS))
+def test_process_returns_new_arrays_past_the_fifo(chunking, rates_q,
+                                                  tmp_path):
+    """process() and flush() over chunkings that go past the input FIFO,
+    through it, and both: the stream is the JAX engine's; every returned
+    array is new, shares no memory with the engine or another output, and
+    stays as it was through later process, flush and reset calls;
+    ``fifo_bypass_blocks`` counts the whole blocks of the calls that find
+    the FIFO empty; a checkpoint saved after a bypassed step resumes in a
+    new engine bit for bit."""
+    dtype = np.float64
+    je, te = _engines(rates_q, dtype)
+    widths = CHUNKINGS[chunking](te.block)
+    x = np.random.default_rng(14).normal(
+        size=(BATCH, sum(widths))).astype(dtype)
+    streaming.fifo_bypass_blocks = 0
+    outs, saved = _run_widths(te, x, widths, save_at=tmp_path / "s.npz")
+    assert streaming.fifo_bypass_blocks == _bypassed_blocks(widths, te.block)
+    assert (saved is None) == (_bypassed_blocks(widths, te.block) == 0)
+    yj, at = [], 0
+    for w in widths:
+        yj.append(np.asarray(je.process(x[:, at:at + w])))
+        at += w
+    yj.append(np.asarray(je.flush()))
+    _close(np.concatenate(outs, 1), np.concatenate(yj, 1), dtype)
+
+    engine_memory = [te._pending._buf] + [
+        b.numpy() for b in (te._stage_in, te._stage_out) if b is not None
+    ] + [leaf.numpy() for leaf in _state_leaves(te.state)
+         if isinstance(leaf, torch.Tensor)]
+    for i, y in enumerate(outs):
+        assert not any(np.shares_memory(y, m) for m in engine_memory)
+        assert not any(np.shares_memory(y, o) for o in outs[:i])
+    kept = [y.copy() for y in outs]
+    # Later calls on reversed views of x, whose negative strides the
+    # bypass copies from as they are: each view's stream is its
+    # contiguous copy's, and the outputs above stay as they were.
+    for view in (x[:, ::-1], x[::-1]):
+        te.reset()
+        got, _ = _run_widths(te, view, widths)
+        te.reset()
+        want, _ = _run_widths(te, view.copy(), widths)
+        assert np.array_equal(np.concatenate(got, 1),
+                              np.concatenate(want, 1))
+    te.reset()
+    assert all(np.array_equal(y, k) for y, k in zip(outs, kept))
+
+    if saved is not None:
+        fresh = EngineCore(te.plan, batch=BATCH, block=BLOCK,
+                           dtype=torch.float64, device="cpu")
+        load_stream_state(fresh, tmp_path / "s.npz")
+        rest, _ = _run_widths(fresh, x, widths[saved:],
+                              start=sum(widths[:saved]))
+        assert np.array_equal(np.concatenate(rest, 1),
+                              np.concatenate(outs[saved:], 1))
+
+
 def test_reset_and_flush_rules():
     _, te = _engines(PLANS[0], np.float64)
     x = np.random.default_rng(18).normal(size=(BATCH, 3000))
@@ -227,6 +330,21 @@ def test_mono_input_broadcasts():
     yt = np.concatenate([te.process(x), te.flush()], 1)
     _close(yt, yj, np.float64)
     assert np.array_equal(yt[0], yt[2])
+
+
+@pytest.mark.parametrize("batch", [1, BATCH])
+def test_reversed_mono_input(batch):
+    """A reversed 1-D view (a negative stride; read-only once broadcast
+    over streams) of whole blocks gives the stream of its contiguous
+    copy."""
+    _, te = _engines(PLANS[0], np.float64, batch=batch)
+    x = np.random.default_rng(20).normal(size=3 * te.block)[::-1]
+    streaming.fifo_bypass_blocks = 0
+    got = np.concatenate([te.process(x), te.flush()], 1)
+    assert streaming.fifo_bypass_blocks == 3
+    te.reset()
+    want = np.concatenate([te.process(x.copy()), te.flush()], 1)
+    assert np.array_equal(got, want)
 
 
 def test_introspection_matches():
