@@ -981,7 +981,7 @@ def main_path(gen, card: str) -> dict:
     eng = EngineCore(plan, batch=STREAMS, block=BLOCK, dtype=torch.float32)
     require(eng.device.type == "cuda" and eng.block == BLOCK,
             f"engine on {eng.device}, block {eng.block}")
-    ipx, p2 = eng._device_params()
+    ipx, p2 = eng._period
     n = RATE_IN * SECONDS
     x = torch.empty((STREAMS, n), device="cuda").normal_(generator=gen)
     x *= 0.5
@@ -1009,7 +1009,7 @@ def main_path(gen, card: str) -> dict:
     require(canonical == 480002 and got_len == canonical,
             f"output length {got_len}, canonical {canonical}")
     expected = expected_launches(plan, n, len(chunks), ipx, p2, BLOCK,
-                                 eng._drop_override)
+                                 eng._drop)
     require(launches == expected and (k2, k3) == (0, 0),
             f"launches K1 {launches} (expected {expected}), K2 {k2}, K3 {k3}")
     require(all(bool(torch.isfinite(o).all()) for o in outs),
@@ -1150,7 +1150,7 @@ def decim_path(gen, card: str) -> tuple[int, int]:
     xt = x.t().contiguous()
     chunks = [(a, min(n, a + block)) for a in range(0, n, block)]
     expected = expected_launches(plan, n, len(chunks), mult,
-                                 eng._band.p2, block, eng._drop_override)
+                                 eng._band.p2, block, eng._drop)
     counts, ys = [], []
     for label, e, data, dim in (
             ("EngineCore (K1)", eng, lambda a, b: x[:, a:b], 1),
@@ -1797,7 +1797,7 @@ def composite_path(gen, card: str) -> dict:
             f"{op.lam}, head {op.head.shape}")
     eng = EngineCore(plan, batch=COMP_STREAMS, block=2048)
     r_t, ipx, wx, p2, carry, _ = eng._band
-    require((tuple(r_t.shape), ipx, eng.block, carry, eng._drop_override)
+    require((tuple(r_t.shape), ipx, eng.block, carry, eng._drop)
             == ((3861, 735), 1600, 3200, 3690, 1470),
             f"composite engine: R_t {tuple(r_t.shape)}, ipx {ipx}, block "
             f"{eng.block}, carry {carry}")
@@ -1820,7 +1820,7 @@ def composite_path(gen, card: str) -> dict:
     steps = warm_steps("composite step", eng, x, card)
     chunks = [(a, min(n, a + eng.block)) for a in range(0, n, eng.block)]
     expected = expected_launches(plan, n, len(chunks), ipx, p2, eng.block,
-                                 eng._drop_override)
+                                 eng._drop)
     y, wall, counts = device_run(eng, x, chunks, canonical)
     require(tuple(y.shape) == (COMP_STREAMS, canonical),
             f"composite output {tuple(y.shape)}, canonical {canonical}")
@@ -1898,7 +1898,7 @@ def strict_path(gen, card: str) -> dict:
                            dtype=torch.float32, device="cuda")
     chunks = [(a, min(n, a + eng.block)) for a in range(0, n, eng.block)]
     expected = expected_launches(plan, n, len(chunks), ipx, p2, eng.block,
-                                 eng._drop_override)
+                                 eng._drop)
     y, wall, counts = device_run(eng, x, chunks, canonical)
     require(tuple(y.shape) == (STRICT_STREAMS, canonical)
             and counts == (expected, 0, 0) and bool(torch.isfinite(y).all()),
@@ -2306,7 +2306,7 @@ def api_a(gen, card: str) -> int:
             and eng.block == BLOCK and mult and BLOCK % mult == 0,
             f"API-A: exec {[e.plan.kind for e in r._exec]}, block "
             f"{eng.block}, multiple {mult}")
-    ipx, p2 = eng._device_params()
+    ipx, p2 = eng._period
     n = RATE_IN * SECONDS
     chunks = [(a, min(n, a + BLOCK)) for a in range(0, n, BLOCK)]
     require(all((b - a) % mult == 0 for a, b in chunks),
@@ -2316,7 +2316,7 @@ def api_a(gen, card: str) -> int:
     torch.empty((API_CHANNELS, canonical + BLOCK), device="cuda")
     y, counts, records = device_route(r, x, chunks)
     expected = expected_launches(eng.plan, n, len(chunks), ipx, p2,
-                                 eng.block, eng._drop_override)
+                                 eng.block, eng._drop)
     require(tuple(y.shape) == (API_CHANNELS, canonical)
             and counts == (expected, 0, 0)
             and bool(torch.isfinite(y).all()),
@@ -2424,10 +2424,10 @@ def api_b(gen, card: str) -> int:
     x = api_input(gen, COMP_IN, n, tones=(1000.0, 30000.0))
     canonical = eng.plan.lengths.canonical(n)
     torch.empty((API_CHANNELS, canonical + eng.block), device="cuda")
-    ipx, p2 = eng._device_params()
+    ipx, p2 = eng._period
     y, counts, records = device_route(r, x, chunks)
     expected = expected_launches(eng.plan, n, len(chunks), ipx, p2,
-                                 eng.block, eng._drop_override)
+                                 eng.block, eng._drop)
     require(tuple(y.shape) == (API_CHANNELS, canonical)
             and counts == (expected, 0, 0)
             and bool(torch.isfinite(y).all()),
@@ -2493,7 +2493,7 @@ def api_c(gen, card: str) -> dict:
     torch.empty((API_CHANNELS, canonical + eng.block), device="cuda")
     y, counts, records = device_route(r, x, chunks)
     expected = expected_launches(eng.plan, n, len(chunks), ipx, p2,
-                                 eng.block, eng._drop_override)
+                                 eng.block, eng._drop)
     require(tuple(y.shape) == (API_CHANNELS, canonical)
             and counts == (expected, 0, 0),
             f"API-C: output {tuple(y.shape)}, launches {counts} (expected "
@@ -3027,7 +3027,7 @@ def tier_engines(main: dict, card: str, tier: str) -> tuple[int, int]:
     require(eng._tier == tier and eng._band.op.tier == tier,
             f"engine at {eng._tier}")
     expected = expected_launches(plan, n, len(chunks), eng._band.ipx,
-                                 eng._band.p2, BLOCK, eng._drop_override)
+                                 eng._band.p2, BLOCK, eng._drop)
     reset_launches()
     t0 = time.perf_counter()
     outs = [eng.process_device(x[:, a:b]) for a, b in chunks]
@@ -3944,7 +3944,7 @@ def sharded_step_exact(card: str, mesh, x) -> dict:
     peaks_ok = all(float(p) == float(local(y).abs().max())
                    for p, y in zip(peaks, ys))
     got = torch.cat([local(y)[:, :k] for y, k in zip(ys, ns)], dim=1)
-    drop = EngineCore(plan, block=BLOCK, device="cpu")._drop_override
+    drop = EngineCore(plan, block=BLOCK, device="cpu")._drop
     ref = oneshot(plan, xs)
     m = min(ref.shape[1], got.shape[1] - drop)
     err = (got[:, drop:drop + m] - ref[:, :m]).abs().max().item()

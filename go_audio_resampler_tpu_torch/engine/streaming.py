@@ -223,6 +223,18 @@ def _host_copy(dst: np.ndarray, src) -> None:
         torch.from_numpy(dst).copy_(torch.as_tensor(src))
 
 
+def _host_streams(x, batch: int, dtype) -> np.ndarray:
+    """A host chunk as [batch, n] streams of ``dtype``: [n] feeds every
+    stream (a read-only broadcast where batch > 1)."""
+    x = np.asarray(x, dtype=dtype)
+    if x.ndim == 1:
+        x = (np.broadcast_to(x, (batch, x.shape[0])) if batch > 1
+             else x[None, :])
+    if x.shape[0] != batch:
+        raise ValueError(f"expected {batch} streams, got {x.shape[0]}")
+    return x
+
+
 def _slope_measure(fns: dict, depths: tuple, iters: int = 5,
                    timer=None) -> tuple:
     """Measure marginal (depth-slope) times per variant, with a jitter floor.
@@ -430,6 +442,95 @@ class _Chain:
         return (min(t_hi) - min(t_lo)) / (hi - lo) * 1e3
 
 
+class _CanonicalStream:
+    """The canonical-stream bookkeeping of the streaming engines
+    (``EngineCore``'s host and device paths, ``TimeMajorEngine``): the
+    counters, the emit and the flush's drain.  An engine sets ``plan``,
+    ``block``, ``_drop`` (the leading core outputs the wrapper drops) and
+    ``_flush_limit`` (the extra zero blocks a flush may need) when it is
+    built, and ``EngineCore`` a banded composite's head rows."""
+
+    _head_t = None
+
+    def reset(self):
+        self.samples_in = 0       # real input samples fed by the caller
+        self.samples_out = 0      # canonical samples emitted to the caller
+        self._core_emitted = 0    # core outputs seen (incl. transient prefix)
+        self._flushed = False
+
+    def estimate_output(self, n: int) -> int:
+        return self.plan.estimate_output(n)
+
+    def _head_rows(self, n: int) -> torch.Tensor | None:
+        """Of the next ``n`` canonical outputs, those in a composite's
+        head: its exact rows over 0^lam ++ the input's prefix, [S, k] in
+        float64 (on the card whatever ``allow_tf32`` says) on the engine's
+        device; None where no output falls in a head.
+
+        Every call forms the product of all the head rows, one shape, so
+        the host and device routes give the same bits.  An output's row
+        reads only inputs consumed before its emit, and a sample not yet
+        collected is 0 against a 0 coefficient."""
+        k0 = self.samples_out
+        if self._head_t is None or not n or k0 >= self._head_t.shape[1]:
+            return None
+        k1 = min(self._head_t.shape[1], k0 + n)
+        return (self._head_xe @ self._head_t)[:, k0:k1]
+
+    def _emit(self, y, n_out: int, limit: int | None, axis: int = 1):
+        """The canonical part of a step's ``n_out`` core outputs ``y`` (a
+        numpy array or a tensor, time on ``axis``), a view: the ramp drop,
+        then at most ``limit`` canonical outputs in all, a composite's head
+        rows written in (stream-major only).  Only a host array's head rows
+        wait for the device."""
+        with span(ENGINE_EMIT):
+            a = min(max(self._drop - self._core_emitted, 0), n_out)
+            b = n_out if limit is None else min(
+                n_out, a + max(limit - self.samples_out, 0))
+            self._core_emitted += n_out
+            out = y[:, a:b] if axis else y[a:b]
+            head = self._head_rows(b - a)
+            if head is not None:
+                # Only a banded composite has head rows, and its step's
+                # output is always new (only dft_up of factor 1 passes its
+                # input through), so this never writes the caller's data.
+                out[:, :head.shape[1]] = (head.cpu().numpy() if isinstance(
+                    out, np.ndarray) else head)
+            self.samples_out += b - a
+            return out
+
+    def _drain(self, tail, extra, axis: int = 1) -> list:
+        """The flush: feed the zero padding that drains every stage
+        (``lengths.flush_pad``) and emit up to the canonical total; the
+        emitted pieces in order, none after the first flush.
+
+        ``tail(z)`` runs the steps over the input still held and ``z``
+        zeros, in the caller's widths, yielding each ``(y, n_out)``;
+        ``extra()`` runs one step over a zero block.
+        """
+        if self._flushed:
+            return []
+        self._flushed = True
+        lm = self.plan.lengths
+        total = lm.canonical(self.samples_in)
+        z = lm.flush_pad(self.samples_in) if self.samples_in > 0 else 0
+        outs = [self._emit(y, n, total, axis) for y, n in tail(z)]
+        # Block-granular steps may need a few extra zero blocks to reach
+        # the canonical count.  The bound is exact (the core holds back at
+        # most its history), so anything beyond it is a length-model bug:
+        # fail loudly.
+        guard = 0
+        while self.samples_out < total:
+            outs.append(self._emit(*extra(), total, axis))
+            guard += 1
+            if guard > self._flush_limit:
+                raise AssertionError(
+                    "internal: flush under-produced "
+                    f"({self.samples_out} < {total}) after {guard} extra "
+                    f"blocks (limit {self._flush_limit})")
+        return outs
+
+
 def pipelined_stream(eng, chunks, out: str, granule: int):
     """Pipelined-stream protocol behind :meth:`EngineCore.stream`.
 
@@ -443,20 +544,14 @@ def pipelined_stream(eng, chunks, out: str, granule: int):
     if out not in ('host', 'device'):
         raise ValueError(f"out must be 'host' or 'device', got {out!r}")
 
-    def _norm(x) -> np.ndarray:
-        x = np.asarray(x, dtype=eng.np_dtype)
-        if x.ndim == 1:
-            x = (np.broadcast_to(x, (eng.batch, x.shape[0]))
-                 if eng.batch > 1 else x[None, :])
-        return x
-
     def _pop(pend):
         return pend.cpu().numpy() if out == 'host' else pend
 
     pend = None                              # queued, not downloaded
     buf = np.zeros((eng.batch, 0), eng.np_dtype)
     for x in chunks:
-        buf = np.concatenate([buf, _norm(x)], axis=1)
+        buf = np.concatenate([buf, _host_streams(x, eng.batch, eng.np_dtype)],
+                             axis=1)
         n = (buf.shape[1] // granule) * granule
         if not n:
             continue
@@ -479,7 +574,7 @@ def pipelined_stream(eng, chunks, out: str, granule: int):
         yield _pop(tail)
 
 
-class EngineCore:
+class EngineCore(_CanonicalStream):
     """Stateful streaming resampler over a batch of independent streams.
 
     The reference processes channels with one goroutine each
@@ -550,7 +645,7 @@ class EngineCore:
         # allocated on their first step (_host_buffer); pinned on the card.
         self._pinned = self.device.type == 'cuda'
         self._stage_in = self._stage_out = None
-        self._build_constants()
+        self._flush_limit = _ceil_div(self._build_constants(), self.block) + 2
         #: What ``dispatch='tune'`` found (:meth:`_tune_dispatch`); None
         #: for any other dispatch.
         self.tune_record = None
@@ -651,12 +746,19 @@ class EngineCore:
         return torch.as_tensor(np.asarray(a), dtype=self.dtype,
                                device=self.device)
 
-    def _build_constants(self):
+    def _build_constants(self) -> int:
+        """The topology's constants, and the facts the paths read: the
+        static period (input period, outputs per period; None where output
+        counts depend on the data) and the ramp drop (_CanonicalStream).
+        Returns the input the core can hold back without emitting, which
+        bounds a flush's extra zero blocks: its history (the banded carry
+        and one window, the walk's hist_size and the prefilter's group
+        delay, the prestage carry, cubic's 3-sample window)."""
         p = self.plan
         self._band = None
         self._decim_fft = None
-        self._drop_override = None
-        self._head_t = None
+        self._period = None
+        self._drop = p.lengths.drop_prefix()
         # Exact-rational plans fold the strict-antialias prefilter into the
         # fused banded operator (oneshot._fused_rational_matrix); the host
         # FIFO of the prefilter runs only ahead of the non-exact walk.
@@ -664,16 +766,18 @@ class EngineCore:
                         and not p.is_rational_exact)
         if p.kind == 'two_stage' and not p.is_rational_exact:
             self._build_walk()
-            return
+            return self.hist_size + (2 * self._aa_delay if self._has_aa
+                                     else 0)
         if p.kind == 'cubic':
             self._build_cubic()
-            return
+            return 4
         if p.kind == 'dft_up':
             self._pre_bands = {}
             if p.factor > 1:
                 self.pre_coeffs = self._tensor(p.pre_coeffs)
                 self._pre_band(self.block)
-            return
+            self._period = (1, p.factor)
+            return max(p.pre_taps - 1, 0)
         if p.kind == 'decimate' and p.decim_taps >= DECIM_FFT_MIN_TAPS:
             # Long prototype: stream through _fft_decim_step, one output
             # per factor inputs, the block a multiple of the factor; the
@@ -683,8 +787,9 @@ class EngineCore:
             self.block = _ceil_div(self.block, p.factor) * p.factor
             self._decim_carry = (_ceil_div(p.decim_taps - 1, p.factor)
                                  * p.factor)
-            self._drop_override = self._decim_carry // p.factor
-            return
+            self._period = (p.factor, 1)
+            self._drop = self._decim_carry // p.factor
+            return self._decim_carry + p.decim_taps
         if p.kind == 'decimate':
             r, _, ipx = _decim_matrix(p)
         elif p.kind == 'two_stage':
@@ -697,7 +802,7 @@ class EngineCore:
             # period m reads (0^lam ++ x)[m*I : m*I + W].  Where the
             # composite has an aperiodic head, its first n_head canonical
             # outputs are the exact head rows over the input's prefix
-            # (_emit, _emit_device).
+            # (_CanonicalStream._emit).
             op = p.op
             r, ipx, lam = op.R, op.I, op.lam
             if op.head is not None:
@@ -717,17 +822,19 @@ class EngineCore:
             # zero carry of C = round_up(T-1, M) shifts the local grid by
             # C/M ramp outputs, which the wrapper drops.
             carry = _ceil_div(p.decim_taps - 1, p.factor) * p.factor
-            self._drop_override = carry // p.factor
+            self._drop = carry // p.factor
         else:
             # The zero carry C >= Wx-Ipx with C == lam (mod Ipx) places the
             # canonical grid (C-lam)/Ipx periods into the core stream; the
             # wrapper drops that ramp.
             carry = lam + _ceil_div(max(wx - ipx - lam, 0), ipx) * ipx
-            self._drop_override = ((carry - lam) // ipx) * p2
+            self._drop = ((carry - lam) // ipx) * p2
         r_t = torch.as_tensor(np.ascontiguousarray(r.T), dtype=self.dtype,
                               device=self.device)
         self._band = Band(r_t, ipx, wx, p2, carry,
                           banded.prepare_on_card(r_t, self._tier))
+        self._period = (ipx, p2)
+        return carry + wx
 
     def _build_walk(self):
         """The general two-stage walk's constants (the JAX engine's
@@ -884,15 +991,12 @@ class EngineCore:
 
     def reset(self):
         """Clear all streaming state (resampler.go:325-340)."""
+        super().reset()
         self.state = self._init_state()
         # Input accumulator: the RingBuffer role of the reference pipeline
         # (internal/pipeline/buffer.go:12-172).
         self._pending = SampleFIFO(self.batch, capacity=2 * self.block,
                                    dtype=self.np_dtype)
-        self.samples_in = 0       # real input samples fed by the caller
-        self.samples_out = 0      # canonical samples emitted to the caller
-        self._core_emitted = 0    # core outputs seen (incl. transient prefix)
-        self._flushed = False
         if self._head_t is not None:
             # The head rows' input, 0^lam ++ (the input's first samples),
             # in float64 on the engine's device (see _head_rows).
@@ -975,22 +1079,6 @@ class EngineCore:
                     x, np.ndarray) else x[:, :take]).to(self._head_xe)
             self._head_have += take
 
-    def _head_rows(self, n: int) -> torch.Tensor | None:
-        """Of the next ``n`` canonical outputs, those in a composite's
-        head: its exact rows over 0^lam ++ the input's prefix, [S, k] in
-        float64 (on the card whatever ``allow_tf32`` says) on the engine's
-        device; None where no output falls in a head.
-
-        Every call forms the product of all the head rows, one shape, so
-        the host and device routes give the same bits.  An output's row
-        reads only inputs consumed before its emit, and a sample not yet
-        collected is 0 against a 0 coefficient."""
-        k0 = self.samples_out
-        if self._head_t is None or not n or k0 >= self._head_t.shape[1]:
-            return None
-        k1 = min(self._head_t.shape[1], k0 + n)
-        return (self._head_xe @ self._head_t)[:, k0:k1]
-
     def set_carry(self, carry: np.ndarray) -> None:
         """Replace the step's carry (the last input samples it holds).
 
@@ -1030,13 +1118,14 @@ class EngineCore:
         buf[:, n:] = 0
         return staged
 
-    def _run_block(self, staged: torch.Tensor) -> np.ndarray:
+    def _run_block(self, staged: torch.Tensor) -> tuple[np.ndarray, int]:
         """One step over the block in the input staging buffer; returns its
-        core outputs as a new array, written once: on the card from the
-        pinned output buffer, on the CPU from the step's output.  On the
-        card the H2D is asynchronous; the blocking D2H behind it on the
-        same stream is done before this returns, and with it every copy
-        that read the staging buffers, so the host may write them again."""
+        core outputs as a new array, written once (on the card from the
+        pinned output buffer, on the CPU from the step's output), and
+        their count.  On the card the H2D is asynchronous; the blocking D2H
+        behind it on the same stream is done before this returns, and with
+        it every copy that read the staging buffers, so the host may write
+        them again."""
         global staged_steps
         with span(ENGINE_H2D):
             x = torch.empty(staged.shape, dtype=self.dtype,
@@ -1052,33 +1141,7 @@ class EngineCore:
                 y = y_host
             out = np.empty(tuple(y.shape), dtype=self.np_dtype)
             _host_copy(out, y)
-            return out
-
-    def _drop(self) -> int:
-        """Leading core outputs the wrapper drops: the fused steps' ramp,
-        else the length model's transient prefix (dft_up's)."""
-        if self._drop_override is not None:
-            return self._drop_override
-        return self.plan.lengths.drop_prefix()
-
-    def _emit(self, core_out: np.ndarray, limit: int | None) -> np.ndarray:
-        """Apply the transient-prefix drop and the canonical limit."""
-        with span(ENGINE_EMIT):
-            drop = self._drop()
-            start = 0
-            if self._core_emitted < drop:
-                start = min(drop - self._core_emitted, core_out.shape[1])
-            self._core_emitted += core_out.shape[1]
-            out = core_out[:, start:]
-            if limit is not None:
-                room = limit - self.samples_out
-                out = out[:, :max(room, 0)]
-            head = self._head_rows(out.shape[1])
-            if head is not None:
-                out = np.array(out)
-                out[:, :head.shape[1]] = head.cpu().numpy()
-            self.samples_out += out.shape[1]
-            return out
+            return out, n
 
     def process(self, x: np.ndarray) -> np.ndarray:
         """Resample a chunk; returns all output currently available.
@@ -1097,13 +1160,7 @@ class EngineCore:
             if self._flushed:
                 raise RuntimeError(
                     "process() after flush(); call reset() first")
-            x = np.asarray(x, dtype=self.np_dtype)
-            if x.ndim == 1:
-                x = (np.broadcast_to(x, (self.batch, x.shape[0]))
-                     if self.batch > 1 else x[None, :])
-            if x.shape[0] != self.batch:
-                raise ValueError(
-                    f"expected {self.batch} streams, got {x.shape[0]}")
+            x = _host_streams(x, self.batch, self.np_dtype)
             self.samples_in += x.shape[1]
             if self._head_t is not None:
                 self._collect_head(x)
@@ -1127,12 +1184,18 @@ class EngineCore:
                         fifo_bypass_blocks += k
                     else:
                         self._pending.read_into(buf)
-                outs.append(self._emit(self._run_block(staged), None))
-            if outs:
-                with span(ENGINE_EMIT):
-                    return (outs[0] if len(outs) == 1
-                            else np.concatenate(outs, axis=1))
-            return np.zeros((self.batch, 0), dtype=self.np_dtype)
+                outs.append(self._emit(*self._run_block(staged), None))
+            with span(ENGINE_EMIT):
+                return self._host_join(outs)
+
+    def _host_join(self, outs: list) -> np.ndarray:
+        """The host pieces of one call as one array: the one piece itself,
+        else their concatenation."""
+        if len(outs) == 1:
+            return outs[0]
+        if outs:
+            return np.concatenate(outs, axis=1)
+        return np.zeros((self.batch, 0), dtype=self.np_dtype)
 
     # -- device-resident streaming (serving / ML-ingest path) ---------------
 
@@ -1141,49 +1204,11 @@ class EngineCore:
         """Input-chunk granularity for :meth:`process_device`.
 
         The fused operator's input period for the banded steps, the factor
-        for the FFT-routed decimation, 1 for the DFT upsample; ``None`` when the topology has data-dependent output
-        counts (cubic, the non-exact walk) and only :meth:`process` is
-        available.
+        for the FFT-routed decimation, 1 for the DFT upsample; ``None`` when
+        the topology has data-dependent output counts (cubic, the non-exact
+        walk) and only :meth:`process` is available.
         """
-        if self._band is not None:
-            return self._band.ipx
-        if self._decim_fft is not None:
-            return self.plan.factor
-        return 1 if self.plan.kind == 'dft_up' else None
-
-    def _device_params(self) -> tuple[int, int]:
-        """(input period, outputs per period) for the static-count step."""
-        if self._band is not None:
-            return self._band.ipx, self._band.p2
-        if self._decim_fft is not None:
-            return self.plan.factor, 1
-        return 1, self.plan.factor
-
-    def _emit_device(self, core_out: torch.Tensor, n_out: int,
-                     limit: int | None) -> torch.Tensor:
-        """Device-mode twin of :meth:`_emit` (keep the two in sync).
-
-        All slice bounds are host-known (static counts), so nothing here
-        synchronizes with the device.  A composite's head rows are the
-        host path's (:meth:`_head_rows`, float64 then cast), so both
-        routes give the same bits.
-        """
-        with span(ENGINE_EMIT):
-            drop = self._drop()
-            start = 0
-            if self._core_emitted < drop:
-                start = min(drop - self._core_emitted, n_out)
-            self._core_emitted += n_out
-            out = core_out[:, start:n_out]
-            if limit is not None:
-                room = limit - self.samples_out
-                out = out[:, :max(room, 0)]
-            head = self._head_rows(out.shape[1])
-            if head is not None:
-                out = torch.cat([head.to(self.dtype), out[:, head.shape[1]:]],
-                                dim=1)
-            self.samples_out += out.shape[1]
-            return out
+        return None if self._period is None else self._period[0]
 
     def process_device(self, x) -> torch.Tensor:
         """Resample a chunk on the device; returns a tensor there.
@@ -1228,9 +1253,15 @@ class EngineCore:
             self.samples_in += n
             if self._head_t is not None:
                 self._collect_head(x)
-            self.state, y, _n = self._step(self.state, x)
-            ipx, p2 = self._device_params()
-            return self._emit_device(y, (n // ipx) * p2, None)
+            return self._emit(*self._device_step(x), None)
+
+    def _device_step(self, x: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """One step of the static-count topologies over ``x`` on the
+        device: its output and the count the period gives, known on the
+        host."""
+        self.state, y, _n = self._step(self.state, x)
+        ipx, p2 = self._period
+        return y, (x.shape[1] // ipx) * p2
 
     def flush_device(self) -> torch.Tensor:
         """Drain all stage tails on the device; returns a tensor there.
@@ -1244,40 +1275,20 @@ class EngineCore:
             raise NotImplementedError(
                 f"flush_device: topology {self.plan.kind!r} has "
                 "data-dependent output counts; use flush()")
-        if self._flushed:
-            return torch.zeros((self.batch, 0), dtype=self.dtype,
-                               device=self.device)
-        self._flushed = True
-        lm = self.plan.lengths
-        canonical_total = lm.canonical(self.samples_in)
-        z = lm.flush_pad(self.samples_in) if self.samples_in > 0 else 0
-        rem = self._pending.available()
-        total_tail = rem + z
-        ipx, p2 = self._device_params()
-        outs = []
-        if total_tail:
-            n1 = _ceil_div(total_tail, mult) * mult
-            tail = np.zeros((self.batch, n1), dtype=self.np_dtype)
-            if rem:
-                tail[:, :rem] = self._pending.read_all()
-            self.state, y, _n = self._step(self.state, self._to_device(tail))
-            outs.append(self._emit_device(y, (n1 // ipx) * p2,
-                                          canonical_total))
-        guard, limit = 0, self._flush_extra_limit()
-        zeros_blk = None
-        while self.samples_out < canonical_total:
-            if zeros_blk is None:
-                zeros_blk = torch.zeros((self.batch, self.block),
-                                        dtype=self.dtype, device=self.device)
-            self.state, y, _n = self._step(self.state, zeros_blk)
-            outs.append(self._emit_device(y, (self.block // ipx) * p2,
-                                          canonical_total))
-            guard += 1
-            if guard > limit:
-                raise AssertionError(
-                    "internal: flush under-produced "
-                    f"({self.samples_out} < {canonical_total}) after "
-                    f"{guard} extra blocks (limit {limit})")
+
+        def tail(z):
+            # One step over the held input and the padding, rounded up to
+            # the chunk multiple.
+            rem = self._pending.available()
+            if rem + z:
+                t = np.zeros((self.batch, _ceil_div(rem + z, mult) * mult),
+                             dtype=self.np_dtype)
+                t[:, :rem] = self._pending.read_all()
+                yield self._device_step(self._to_device(t))
+
+        zeros = functools.cache(lambda: torch.zeros(
+            (self.batch, self.block), dtype=self.dtype, device=self.device))
+        outs = self._drain(tail, lambda: self._device_step(zeros()))
         if outs:
             return torch.cat(outs, dim=1)
         return torch.zeros((self.batch, 0), dtype=self.dtype,
@@ -1320,29 +1331,6 @@ class EngineCore:
             return
         yield from pipelined_stream(self, chunks, out, mult)
 
-    def _flush_extra_limit(self) -> int:
-        """Max extra zero blocks flush may legally need (exact holdback).
-
-        Per topology, the core's internal history bounds how much input it
-        can hold back without emitting: the banded carry plus one window
-        for the fused steps, ``hist_size`` for the general walk, the
-        prestage carry for DFT up, and the 3-sample window for cubic; plus
-        the strict-antialias prefilter's group delay when present."""
-        p = self.plan
-        if self._band is not None:
-            hold = self._band.carry + self._band.wx
-        elif self._decim_fft is not None:
-            hold = self._decim_carry + p.decim_taps
-        elif p.kind == 'cubic':
-            hold = 4
-        elif p.kind == 'dft_up':
-            hold = max(p.pre_taps - 1, 0)
-        else:
-            hold = self.hist_size
-        if self._has_aa:
-            hold += 2 * self._aa_delay
-        return _ceil_div(hold, self.block) + 2
-
     def flush(self) -> np.ndarray:
         """Drain all stage tails; returns the remaining canonical samples.
 
@@ -1350,44 +1338,23 @@ class EngineCore:
         fed the exact zero padding that drains every stage, and the stream
         is trimmed to the canonical total.
         """
-        if self._flushed:
-            return np.zeros((self.batch, 0), dtype=self.np_dtype)
-        self._flushed = True
-        lm = self.plan.lengths
-        canonical_total = lm.canonical(self.samples_in)
-        z = lm.flush_pad(self.samples_in) if self.samples_in > 0 else 0
-        if self._has_aa:
-            # Run the flush padding through the prefilter, so the core sees
-            # aa(x ++ 0^z): the prefilter's tail extends into the padding
-            # (the same semantics as the fused matrix and the one-shot).
-            self._pending.write(self._aa_drain(z))
-            z = 0
-        # Feed remainder + z zeros, rounded up to whole blocks (extra zeros
-        # only produce post-canonical samples, which the limit trims).
-        total_tail = self._pending.available() + z
-        n_blocks = _ceil_div(total_tail, self.block) if total_tail else 0
-        outs = []
-        for _ in range(n_blocks):
-            outs.append(self._emit(self._run_block(self._stage_tail()),
-                                   canonical_total))
-        # The fused step's block-granular emission may need a few extra
-        # zero blocks to reach the canonical count.  The bound is exact
-        # (the core holds back at most its carry plus one window), so
-        # anything beyond it is a length-model bug: fail loudly.
-        guard, limit = 0, self._flush_extra_limit()
-        while self.samples_out < canonical_total:
-            outs.append(self._emit(self._run_block(self._stage_tail()),
-                                   canonical_total))
-            guard += 1
-            if guard > limit:
-                raise AssertionError(
-                    "internal: flush under-produced "
-                    f"({self.samples_out} < {canonical_total}) after "
-                    f"{guard} extra blocks (limit {limit})")
-        if outs:
-            return (outs[0] if len(outs) == 1
-                    else np.concatenate(outs, axis=1))
-        return np.zeros((self.batch, 0), dtype=self.np_dtype)
+        def tail(z):
+            if self._has_aa:
+                # Run the flush padding through the prefilter, so the core
+                # sees aa(x ++ 0^z): the prefilter's tail extends into the
+                # padding (the same semantics as the fused matrix and the
+                # one-shot).
+                self._pending.write(self._aa_drain(z))
+                z = 0
+            # The held input and z zeros, rounded up to whole blocks (extra
+            # zeros only produce post-canonical samples, which the limit
+            # trims).
+            for _ in range(_ceil_div(self._pending.available() + z,
+                                     self.block)):
+                yield self._run_block(self._stage_tail())
+
+        return self._host_join(self._drain(
+            tail, lambda: self._run_block(self._stage_tail())))
 
     # -- introspection (resample.go:339-355, resampler.go:342-353) ---------
 
@@ -1396,9 +1363,6 @@ class EngineCore:
 
     def get_latency(self) -> int:
         return self.plan.latency()
-
-    def estimate_output(self, n: int) -> int:
-        return self.plan.estimate_output(n)
 
     def get_statistics(self) -> dict:
         return {"samplesIn": self.samples_in, "samplesOut": self.samples_out}

@@ -10,9 +10,9 @@ ingest pipeline that holds interleaved frames needs no transpose.
 Device-resident serving only (``process_device``/``flush_device``, the
 twins of ``EngineCore``'s); the host-FIFO paths stay on the stream-major
 engine.  The engine borrows ``EngineCore``'s constants (operator,
-superframe, carry and drop arithmetic, length model) and swaps only the
-step's layout, so output rows equal ``EngineCore``'s output columns for
-the same plan.
+superframe, carry and drop arithmetic, length model) and its emit and
+drain (``streaming._CanonicalStream``), and swaps only the step's layout,
+so output rows equal ``EngineCore``'s output columns for the same plan.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import torch
 from ..ops import tmajor
 from ..ops.precision import dispatch_for
 from .plan import EnginePlan
-from .streaming import EngineCore, _ceil_div, _torch_dtype
+from .streaming import EngineCore, _CanonicalStream, _ceil_div, _torch_dtype
 
 
 def _step_banded_tmajor(r, carry, x, ipx, wx, p2, op=None, dispatch='auto',
@@ -49,7 +49,7 @@ def _step_banded_tmajor(r, carry, x, ipx, wx, p2, op=None, dispatch='auto',
     return data[b:], y, n_frames * p2
 
 
-class TimeMajorEngine:
+class TimeMajorEngine(_CanonicalStream):
     """Device-resident streaming resampler over time-major tensors.
 
     ``process_device(xt)`` takes [samples, streams] rows whose count is a
@@ -87,12 +87,13 @@ class TimeMajorEngine:
                 "TimeMajorEngine: banded composites with an aperiodic "
                 "head are not supported; use EngineCore.process_device")
         # Borrow EngineCore's constants (the operator, carry, ipx, wx and
-        # p2 of every fused banded step, composites included), its checks
-        # of the knobs and its resolved dispatch.
+        # p2 of every fused banded step, composites included, the ramp drop
+        # and the flush bound), its checks of the knobs and its resolved
+        # dispatch.
         eng = EngineCore(plan, batch=batch, block=block, dtype=dtype,
                          dispatch=dispatch, precision=precision,
                          device=device)
-        if eng._decim_fft is not None:
+        if eng._band is None:
             raise NotImplementedError(
                 "TimeMajorEngine: FFT-routed decimation has no banded "
                 "matrix; use EngineCore")
@@ -107,9 +108,7 @@ class TimeMajorEngine:
         (r_t, self._ipx, self._wx, self._p2, self._carry_len,
          self._op) = eng._band
         self._r = r_t.t().contiguous()          # [P2, Wx], left operand
-        self._drop = eng._drop_override
-        self._lengths = plan.lengths
-        self._flush_limit = eng._flush_extra_limit()
+        self._drop, self._flush_limit = eng._drop, eng._flush_limit
         self.reset()
 
     @property
@@ -118,34 +117,20 @@ class TimeMajorEngine:
         return self._ipx
 
     def reset(self) -> None:
+        super().reset()
         self._carry = torch.zeros((self._carry_len, self.batch),
                                   dtype=self.dtype, device=self.device)
-        self.samples_in = 0
-        self.samples_out = 0
-        self._core_emitted = 0
-        self._flushed = False
-
-    def estimate_output(self, n: int) -> int:
-        return self.plan.estimate_output(n)
 
     def _zeros(self, rows: int) -> torch.Tensor:
         return torch.zeros((rows, self.batch), dtype=self.dtype,
                            device=self.device)
 
-    def _run(self, xt: torch.Tensor, limit: int | None) -> torch.Tensor:
+    def _run(self, xt: torch.Tensor) -> tuple[torch.Tensor, int]:
         self._carry, y, n_out = _step_banded_tmajor(
             self._r, self._carry, xt, ipx=self._ipx, wx=self._wx,
             p2=self._p2, op=self._op, dispatch=self.dispatch,
             tier=self._tier)
-        start = 0
-        if self._core_emitted < self._drop:
-            start = min(self._drop - self._core_emitted, n_out)
-        self._core_emitted += n_out
-        out = y[start:n_out]
-        if limit is not None:
-            out = out[:max(limit - self.samples_out, 0)]
-        self.samples_out += out.shape[0]
-        return out
+        return y, n_out
 
     def process_device(self, xt) -> torch.Tensor:
         """[n, S] rows in -> [m, S] rows out on the device, no syncs."""
@@ -162,28 +147,15 @@ class TimeMajorEngine:
         if n == 0:
             return self._zeros(0)
         self.samples_in += n
-        return self._run(xt, None)
+        return self._emit(*self._run(xt), None, axis=0)
 
     def flush_device(self) -> torch.Tensor:
         """Drain the canonical tail (``EngineCore.flush_device`` twin)."""
-        if self._flushed:
-            return self._zeros(0)
-        self._flushed = True
-        canonical_total = self._lengths.canonical(self.samples_in)
-        z = (self._lengths.flush_pad(self.samples_in)
-             if self.samples_in > 0 else 0)
-        outs = []
-        if z:
-            outs.append(self._run(self._zeros(_ceil_div(z, self._ipx)
-                                              * self._ipx), canonical_total))
-        guard = 0
-        while self.samples_out < canonical_total:
-            outs.append(self._run(self._zeros(self.block), canonical_total))
-            guard += 1
-            if guard > self._flush_limit:
-                raise AssertionError(
-                    "internal: flush under-produced "
-                    f"({self.samples_out} < {canonical_total})")
-        if outs:
-            return torch.cat(outs, dim=0)
-        return self._zeros(0)
+        def tail(z):
+            if z:
+                yield self._run(self._zeros(_ceil_div(z, self._ipx)
+                                            * self._ipx))
+
+        outs = self._drain(tail, lambda: self._run(self._zeros(self.block)),
+                           axis=0)
+        return torch.cat(outs, dim=0) if outs else self._zeros(0)

@@ -46,8 +46,9 @@ ENGINE_STEP = "gar.engine.step"
 #: pinned output buffer on the card; the prefilter's ``.cpu().numpy()``),
 #: with its wait for the step's kernels.
 ENGINE_D2H = "gar.engine.d2h"
-#: The ramp drop and canonical limit (``_emit``, ``_emit_device``) and the
-#: ``np.concatenate`` of a call's outputs.
+#: The ramp drop, canonical limit and head rows (``_CanonicalStream._emit``,
+#: shared by the host and device paths) and the ``np.concatenate`` of a
+#: call's outputs.
 ENGINE_EMIT = "gar.engine.emit"
 #: ``functional.resample``: one call.
 FUNCTIONAL_RESAMPLE = "gar.functional.resample"

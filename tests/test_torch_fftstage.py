@@ -302,7 +302,7 @@ def test_engine_fft_decimation_matches_jax(rates_q, lowered):
     assert te._decim_fft is not None and te._band is None
     assert (te.block, te.device_chunk_multiple) == (je.block,
                                                     je.device_chunk_multiple)
-    assert te._drop_override == je._drop_override
+    assert te._drop == je._drop_override
     got = _run(te, x, _splits(30000, np.random.default_rng(4)))
     assert got.shape[1] == tp.lengths.canonical(30000)
     _close(got, want)

@@ -352,8 +352,8 @@ def test_introspection_matches():
     assert te.get_ratio() == je.get_ratio()
     assert te.get_latency() == je.get_latency()
     assert te.estimate_output(44100) == je.estimate_output(44100)
-    assert te._flush_extra_limit() == je._flush_extra_limit()
-    assert te._device_params() == je._device_params()
+    assert te._flush_limit == je._flush_extra_limit()
+    assert te._period == je._device_params()
     assert te.get_statistics() == {"samplesIn": 0, "samplesOut": 0}
 
 
@@ -363,10 +363,10 @@ def test_decimation_at_block_2048_matches_jax(rates_q, dtype):
     """At the default block the decimation operator is superframed; the
     port's constants equal the JAX engine's, and so does the stream."""
     je, te = _engines(rates_q, dtype, block=2048)
-    assert (te.block, te._band.carry, te._drop_override) == (
+    assert (te.block, te._band.carry, te._drop) == (
         je.block, je._decim_carry, je._drop_override)
-    assert te._device_params() == je._device_params()
-    assert te._flush_extra_limit() == je._flush_extra_limit()
+    assert te._period == je._device_params()
+    assert te._flush_limit == je._flush_extra_limit()
     assert np.array_equal(te._band.r_t.numpy(), np.asarray(je._decim_rt))
     rng = np.random.default_rng(14)
     x = rng.normal(size=(BATCH, 8000)).astype(dtype)
@@ -387,7 +387,7 @@ def test_decimation_geometry_48k_16k():
     assert tuple(te._band.r_t.shape) == (2882, 512)
     assert te._band[1:4] == (1536, 2882, 512)
     assert te.block == 3072 and te.device_chunk_multiple == 1536
-    assert (te._band.carry, te._drop_override) == (1350, 450)
+    assert (te._band.carry, te._drop) == (1350, 450)
 
 
 def test_fft_decimation_raises(monkeypatch):
@@ -609,13 +609,15 @@ def test_walk_cubic_dft_up_constants_match_jax(rates_q):
                  "cubic_cap"):
         assert getattr(te, name, None) == getattr(je, name, None), name
     assert te.device_chunk_multiple == je.device_chunk_multiple
-    assert te._flush_extra_limit() == je._flush_extra_limit()
+    assert te._flush_limit == je._flush_extra_limit()
     assert te.get_latency() == je.get_latency()
+    # The JAX engine falls back to the length model's transient prefix.
+    assert je._drop_override is None
+    assert te._drop == je.plan.lengths.drop_prefix()
     if te.plan.kind == "dft_up":
-        assert te._device_params() == je._device_params() == (
-            1, te.plan.factor)
+        assert te._period == je._device_params() == (1, te.plan.factor)
     else:
-        assert te.device_chunk_multiple is None
+        assert te.device_chunk_multiple is None and te._period is None
 
 
 @pytest.mark.parametrize("rates_q", [WALK_PLANS[0], WALK_PLANS[1],

@@ -138,15 +138,16 @@ def test_engine_constants_match_jax(path, block):
     je, te = _engines(path, np.float32, block=block)
     assert te.block == je.block
     assert te.device_chunk_multiple == je.device_chunk_multiple
-    assert te._flush_extra_limit() == je._flush_extra_limit()
+    assert te._flush_limit == je._flush_extra_limit()
     assert te.get_latency() == je.get_latency()
-    assert te._drop_override == je._drop_override
+    assert te._drop == (je._drop_override if je._drop_override is not None
+                        else je.plan.lengths.drop_prefix())
     if path == "D":
         assert te._has_aa and te._aa_delay == je._aa_delay == 245
         assert te._aa_band is None
         return
     name = {"A": "_banded", "C": "_banded", "B": "_rational"}[path]
-    assert te._device_params() == je._device_params()
+    assert te._period == je._device_params()
     assert te._band.carry == getattr(je, name + "_carry")
     assert np.array_equal(te._band.r_t.numpy(),
                           np.asarray(getattr(je, name + "_rt")))

@@ -8,6 +8,7 @@ inputs: float64 to 1e-12, float32 to 2e-5, with identical lengths.  The
 CUDA kernel itself runs only on the card (``test_torch_cuda.py``).
 """
 
+import functools
 import importlib
 
 import jax.numpy as jnp
@@ -25,6 +26,7 @@ from go_audio_resampler_tpu_torch.engine.plan import plan_engine
 from go_audio_resampler_tpu_torch.engine.tmajor import _step_banded_tmajor
 from go_audio_resampler_tpu_torch.filterdesign import Quality
 from go_audio_resampler_tpu_torch.ops import tmajor
+from go_audio_resampler_tpu_torch.pipeline import fused as tfused
 
 streaming = importlib.import_module(
     "go_audio_resampler_tpu_torch.engine.streaming")
@@ -200,10 +202,31 @@ def test_chunked_matches_single_call():
     assert torch.equal(parts[0], parts[1])
 
 
-@pytest.mark.parametrize("n", [0, 1, 147, 148, 4704])
-def test_exact_lengths(n):
-    plan = plan_engine(44100, 48000, Quality.HIGH)
+@functools.lru_cache(maxsize=None)
+def _length_plan(name):
+    """44.1k -> 48k (exact-rational), 48k -> 16k (integer decimation) and
+    the head-free 192k -> 48k composite of two 2:1 stages, built as
+    ``api.Resampler`` builds it (48 kHz-based stage plans)."""
+    if name == "192k->48k":
+        stages = [plan_engine(48000, 24000, Quality.HIGH)] * 2
+        return tfused.BandedPlan(tfused.fuse_chain(stages), 0.25,
+                                 latency=sum(p.latency() for p in stages))
+    rates = {"44.1k->48k": (44100, 48000), "48k->16k": (48000, 16000)}[name]
+    return plan_engine(*rates, Quality.HIGH)
+
+
+@pytest.mark.parametrize("n,name", [
+    pytest.param(n, name,
+                 id=str(n) if name == "44.1k->48k" else f"{name}-{n}")
+    for name in ("44.1k->48k", "48k->16k", "192k->48k")
+    for n in (0, 1, 147, 148, 4704)])
+def test_exact_lengths(n, name):
+    """The shared drain's canonical total on each fused banded kind that
+    ``TimeMajorEngine`` runs: whole chunks of at most ``n`` rows, then
+    the flush."""
+    plan = _length_plan(name)
     tt = TimeMajorEngine(plan, batch=1, dtype=torch.float64, device="cpu")
+    assert plan.kind != "banded" or plan.op.head is None
     rows = (n // tt.chunk_multiple) * tt.chunk_multiple
     x = torch.zeros((rows, 1), dtype=torch.float64)
     y = torch.cat([tt.process_device(x), tt.flush_device()])
