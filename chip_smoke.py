@@ -1671,10 +1671,11 @@ def composite_plan(stages):
 
 
 def k1_engine_shape(label: str, eng, gen, streams: int) -> dict:
-    """K1 at an engine's step (``streams`` x [carry ++ block] against the
-    engine's prepared operator) and at a ragged shape, each against its
-    plain version within 2e-5 of max|y|; then timed beside it, ``F.conv1d``
-    and ``matmul`` on the ``unfold`` view, with its bounds (:func:`k1_at`)."""
+    """K1 at an engine's step (``streams`` blocks behind the carry as its
+    head, as the step launches it, against the engine's prepared operator)
+    and at a ragged shape, each against its plain version within 2e-5 of
+    max|y|; then timed beside it, ``F.conv1d`` and ``matmul`` on the
+    ``unfold`` view of [carry ++ block], with its bounds (:func:`k1_at`)."""
     import torch
     import torch.nn.functional as F
     from go_audio_resampler_tpu_torch.ops import fused
@@ -1692,15 +1693,22 @@ def k1_engine_shape(label: str, eng, gen, streams: int) -> dict:
           "of max|y|")
     require(y.shape == (5, 3 * p2) and err <= KERNEL_TOL,
             f"K1 {label}: {tuple(y.shape)}, error {err}")
-    x = torch.randn((streams, carry + eng.block), generator=gen,
-                    device="cuda")
+    # The step as the engine launches it: the carry (laid out as the step
+    # leaves it) as the head, the block as the data.
+    from go_audio_resampler_tpu_torch.engine.streaming import _next_carry
+    x = torch.randn((streams, eng.block), generator=gen, device="cuda")
+    head = _next_carry(torch.empty((streams, carry), device="cuda"),
+                       torch.randn((streams, eng.block), generator=gen,
+                                   device="cuda"))
     weight = r_t.t().contiguous()[:, None, :]
-    lib_in = x[:, None, :(nf - 1) * ipx + wx].contiguous()
-    frames_v = x.unfold(1, wx, ipx)[:, :nf]
+    rows = fused.virtual_row(x, head)
+    lib_in = rows[:, None, :(nf - 1) * ipx + wx].contiguous()
+    frames_v = rows.unfold(1, wx, ipx)[:, :nf]
     record = k1_at(
         label, x, r_t, ipx, p2, nf, op,
         {"library_conv1d_ms": lambda: F.conv1d(lib_in, weight, stride=ipx),
-         "library_matmul_ms": lambda: torch.matmul(frames_v, r_t)})
+         "library_matmul_ms": lambda: torch.matmul(frames_v, r_t)},
+        head=head)
     return {**record, "max_abs_err": max(err, record["max_abs_err"])}
 
 
@@ -3214,29 +3222,35 @@ FUNC_STREAMS, FUNC_SECONDS, ADJOINT_TOL = 64, 2, 1e-5
 
 
 def k1_at(label: str, x, r_t, ipx: int, p2: int, nf: int, op,
-          library: dict | None = None) -> dict:
-    """K1 at one shape (``x`` [S, n] against R_t [wx, p2], ``nf`` frames)
-    against its plain version within 2e-5 of max|y|, then timed beside
-    it and ``library`` (by default ``F.conv1d`` over R's columns at stride
-    ipx), with its bounds; the record for the kernels' line."""
+          library: dict | None = None, *, head=None,
+          width: int | None = None) -> dict:
+    """K1 at one shape (``x`` [S, n] against R_t [wx, p2], ``nf`` frames,
+    read as ``fused_resample`` reads it: behind ``head`` and out to
+    ``width``) against its plain version within 2e-5 of max|y|, then timed
+    beside it and ``library`` (by default ``F.conv1d`` over R's columns at
+    stride ipx, on the virtual rows materialised), with its bounds; the
+    record for the kernels' line."""
     import torch
     import torch.nn.functional as F
     from go_audio_resampler_tpu_torch.ops import fused
 
     wx = r_t.shape[0]
-    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=nf, tier="highest")
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=nf, tier="highest", head=head,
+              width=width)
     y = fused.fused_resample(x, r_t, op=op, **kw)
     ref = fused.fused_resample_reference(x, r_t, **kw)
     torch.cuda.synchronize()
     err = (y - ref).abs().max().item() / ref.abs().max().item()
-    print(f"  K1 {label}: data {tuple(x.shape)}, R_t {(wx, p2)}, {nf} "
-          f"frames, ipx {ipx}, split {op.split}: max |kernel - plain| = "
-          f"{err:.3g} of max|y|")
+    c = fused._head_width(head)
+    print(f"  K1 {label}: data {tuple(x.shape)}, head {c}, width "
+          f"{width}, R_t {(wx, p2)}, {nf} frames, ipx {ipx}, split "
+          f"{op.split}: max |kernel - plain| = {err:.3g} of max|y|")
     require(tuple(y.shape) == (x.shape[0], nf * p2) and err <= KERNEL_TOL,
             f"K1 {label}: {tuple(y.shape)}, error {err}")
     if library is None:
         weight = r_t.t().contiguous()[:, None, :]
-        lib_in = x[:, None, :(nf - 1) * ipx + wx].contiguous()
+        rows = fused.virtual_row(x, head, width)
+        lib_in = rows[:, None, :(nf - 1) * ipx + wx].contiguous()
         library = {"library_conv1d_ms":
                    lambda: F.conv1d(lib_in, weight, stride=ipx)}
     timed = time_banded(
@@ -3643,10 +3657,10 @@ def functional_phase(gen, card: str, general) -> dict:
             taps = torch.as_tensor(plan.decim_coeffs, dtype=torch.float32,
                                    device="cuda")[None, None, :]
             lib_in = xs[:, None, :]
-            rec = k1_at(f"functional {label}", xs.contiguous(), r_t, ipx, p2,
-                        nf, op, {"library_conv1d_ms": lambda: torch.nn.
-                                 functional.conv1d(lib_in, taps,
-                                                   stride=plan.factor)})
+            rec = k1_at(f"functional {label}", x, r_t, ipx, p2, nf, op,
+                        {"library_conv1d_ms": lambda: torch.nn.functional.
+                         conv1d(lib_in, taps, stride=plan.factor)},
+                        width=need)
             rec["launches"] = counts[0]
             records["functional_48k_16k"] = rec
     # Training ingest: a learnable front end before 48k -> 16k.
@@ -3686,7 +3700,6 @@ def shims_phase(gen, card: str) -> dict:
     import torch
     from go_audio_resampler_tpu_torch import (Quality, oneshot, plan_engine,
                                               soxr_compat, torch_compat)
-    from go_audio_resampler_tpu_torch.engine.oneshot import _pad, _pad_right
     osm = importlib.import_module("go_audio_resampler_tpu_torch.engine.oneshot")
 
     def k1_of(label, plan, x):
@@ -3694,8 +3707,8 @@ def shims_phase(gen, card: str) -> dict:
                                              x.device, "highest")
         wx, p2 = r_t.shape
         nf = -(-plan.lengths.canonical(x.shape[1]) // p2)
-        xs = _pad_right(_pad(x, lam, 0), (nf - 1) * ipx + wx)
-        return k1_at(label, xs, r_t, ipx, p2, nf, op)
+        return k1_at(label, x, r_t, ipx, p2, nf, op, head=lam or None,
+                     width=(nf - 1) * ipx + wx)
 
     records = {}
     n = RATE_IN * SECONDS
@@ -3819,9 +3832,10 @@ def k3_calls():
 
 
 def k1_at_call(label: str, call) -> dict:
+    """K1 at a recorded call (``k1_at``), as the call made it."""
     (data, r_t), kw = call
     return k1_at(label, data, r_t, kw["ipx"], kw["p2"], kw["n_frames"],
-                 kw["op"])
+                 kw["op"], head=kw.get("head"), width=kw.get("width"))
 
 
 def k3_at_call(label: str, call) -> dict:

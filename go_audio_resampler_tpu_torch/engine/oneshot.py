@@ -423,17 +423,18 @@ def _banded_apply(x: torch.Tensor, count: int, aux,
 
     Frames of ``x`` of width Wx advance Ipx per P outputs; ``aux`` is
     (R_t [Wx, P], Ipx, op, lam) from :func:`_banded_aux`, at ``tier``.
-    ``x`` gets ``lam`` zeros on the left (the strict-antialias prefilter's
-    context) and is zero-extended on the right to cover the last frame; no
-    intermediate stream or frames are materialized.
+    K1 reads ``x`` in place, behind ``lam`` zeros (the strict-antialias
+    prefilter's context) and followed by zeros up to the last frame's end
+    (``fused_resample``'s ``head`` and ``width``): no padded copy of the
+    input, no intermediate stream and no frames are materialized.
     """
     r_t, ipx, op, lam = aux
     wx, p2 = r_t.shape
     n_frames = -(-count // p2)
-    if lam:
-        x = _pad(x, lam, 0)
-    x = _pad_right(x, (n_frames - 1) * ipx + wx)
-    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=n_frames, tier=tier)
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=n_frames, tier=tier,
+              head=lam or None, width=(n_frames - 1) * ipx + wx)
+    if x.stride(1) != 1:
+        x = x.contiguous()
     if dispatch_allowed(tier):
         y = fused.fused_resample(x, r_t, op=op, **kw)
     else:
@@ -581,12 +582,13 @@ def _oneshot_apply(plan: EnginePlan, x: torch.Tensor, aux,
             return u[:, drop:drop + canonical]
 
         if plan.kind == 'decimate':
-            # windows at j*M over (x 0^z ...): the canonical grid
-            need = (canonical - 1) * plan.factor + plan.decim_taps
-            xs = _pad(x, 0, max(z, need - n))
+            # windows at j*M over (x 0^z ...): the canonical grid; K1
+            # reads the zeros past x from nowhere (_banded_apply)
             if isinstance(aux[0], fftstage.Spectrum):
+                need = (canonical - 1) * plan.factor + plan.decim_taps
+                xs = _pad(x, 0, max(z, need - n))
                 return fftstage._fft_decimate(plan, xs, canonical, aux[0])
-            return _banded_apply(xs, canonical, aux, tier)
+            return _banded_apply(x, canonical, aux, tier)
 
         # two_stage
         if plan.is_rational_exact:

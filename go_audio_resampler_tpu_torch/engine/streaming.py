@@ -132,18 +132,40 @@ def _banded_frames_apply(data: torch.Tensor, r_t: torch.Tensor, ipx: int,
                          wx: int, p2: int, n_frames: int,
                          op: banded.BandedOperator | None = None,
                          dispatch: str = 'auto', *,
-                         tier: str) -> torch.Tensor:
-    """Windows at j*ipx of width wx times r_t [wx, p2] -> [S, F*p2], at
-    ``tier``.
+                         tier: str, head=None) -> torch.Tensor:
+    """Windows at j*ipx of width wx of ``head ++ data`` times r_t [wx, p2]
+    -> [S, F*p2], at ``tier``.
 
     Where the gate lets ``dispatch`` through (``precision.dispatch_for``),
-    the K1 kernel on a CUDA tensor (reading ``op``) and its plain version
-    on a CPU tensor; else the plain version on either.
+    the K1 kernel on a CUDA tensor (reading ``op``, and the head and the
+    data where they lie) and its plain version on a CPU tensor; else the
+    plain version on either.
     """
-    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=n_frames, tier=tier)
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=n_frames, tier=tier,
+              head=head)
     if dispatch_for(dispatch, tier):
         return fused.fused_resample(data, r_t, op=op, **kw)
     return fused.fused_resample_reference(data, r_t, **kw)
+
+
+def _next_carry(carry: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The last C samples of [carry ++ x], C = carry.shape[1], copied into
+    rows laid out for K1 to read beside the next block in 16-byte copies:
+    each row starts C samples before x's row does, modulo 4, and the rows
+    lie x's row stride apart, modulo 4, as the next block's will where it
+    has x's layout (a layout the kernel does not need, and reads 4 bytes
+    at a time where it is not met)."""
+    s, b = x.shape
+    c = carry.shape[1]
+    lead = (x.data_ptr() // x.element_size() - c) % 4
+    ld = lead + c + (x.stride(0) - lead - c) % 4
+    new = x.new_empty((s, ld))[:, lead:lead + c]
+    if b >= c:
+        new.copy_(x[:, b - c:])
+    else:
+        new[:, :c - b].copy_(carry[:, b:])
+        new[:, c - b:].copy_(x)
+    return new
 
 
 def _fused_banded_step(r_t, carry, x, ipx, wx, p2, op=None,
@@ -153,17 +175,21 @@ def _fused_banded_step(r_t, carry, x, ipx, wx, p2, op=None,
 
     Frames period-aligned windows of [carry ++ block] and applies the
     per-period matrix; with the block a multiple of the input period
-    ``ipx``, every step emits exactly (B/ipx)*p2 samples.  The leading
-    outputs of the stream are the zero-carry ramp, which the wrapper
-    drops.  Returns ``(carry', y, n_valid)``; the new carry is a
-    contiguous copy, so the step's input can be freed.
+    ``ipx``, every step emits exactly (B/ipx)*p2 samples.  K1 reads the
+    carry and the block where they lie: the two are never joined.  The
+    leading outputs of the stream are the zero-carry ramp, which the
+    wrapper drops.  Returns ``(carry', y, n_valid)``; the new carry, the
+    last C samples of [carry ++ block], is a copy (:func:`_next_carry`),
+    so the step's input can be freed.
     """
     b = x.shape[1]
     n_frames = b // ipx
-    data = torch.cat([carry.to(x.dtype), x], dim=1)
-    y = _banded_frames_apply(data, r_t, ipx, wx, p2, n_frames, op, dispatch,
-                             tier=tier)
-    return data[:, b:].contiguous(), y, n_frames * p2
+    carry = carry.to(x.dtype)
+    if x.stride(1) != 1:
+        x = x.contiguous()
+    y = _banded_frames_apply(x, r_t, ipx, wx, p2, n_frames, op, dispatch,
+                             tier=tier, head=carry)
+    return _next_carry(carry, x), y, n_frames * p2
 
 
 def _blockwise(block_step, block: int):

@@ -160,8 +160,8 @@ MUTATIONS = [
 CUDA_MUTATIONS = [
     Mutation(
         "go_audio_resampler_tpu_torch/ops/csrc/fused_resample.cu",
-        "            off = s * ld + (m - s * n_frames) * ipx;",
-        "            off = s * ld + (m - s * n_frames) * ipx + 1;",
+        "            off = s * ld + at - n_head;",
+        "            off = s * ld + at - n_head + 1;",
         CUDA_TARGETS,
         "K1: frame start off by one"),
     Mutation(

@@ -17,7 +17,17 @@ into a directory that ``.gitignore`` lists, and the working tree.
 Shapes: 44.1 kHz -> 48 kHz HIGH, 1024 streams, one 2352-sample step
 ([1024, 2646] data, R_t [343, 160], 16 frames); 48 kHz -> 16 kHz HIGH,
 256 streams, one 3072-sample step ([256, 4422] data, R_t [2882, 512], 2
-frames).  K2 takes the same data transposed.  K3: 64 streams of 2 s,
+frames).  K2 takes the same data transposed.  For a tree whose K1 reads
+its rows in pieces (``head``, ``width``), K1 is also timed on the same
+rows as the engine's carry beside its block (``k1_<shape>_head_ms``: the
+carry laid out as the streaming step leaves it, where the tree lays it
+out; ``k1_<shape>_head_packed_ms``: a contiguous carry, as the first
+step reads its zeros) and cut short of a zero tail of about half a frame
+(``k1_<shape>_tail_ms``), each checked bit for bit against the whole
+row, and ``cat_<shape>_ms`` times the ``torch.cat`` of carry and block
+that a step made before K1 read them in place.  K1 alone also at a 2x
+prestage's shape ([256, 2213] data, R_t [293, 256], 16 frames, no head).
+K3: 64 streams of 2 s,
 44.1 kHz -> 48.001 kHz HIGH (x [64, 88783], M [376, 420, 256]) and
 44.1 kHz -> 48 kHz QUICK (M [376, 239, 256]), as ``chip_smoke.k3_operands``
 builds them; M's band table and block width go to a tree whose wrapper
@@ -124,6 +134,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.abspath(args.root))
     from go_audio_resampler_tpu_torch import EngineCore, Quality, plan_engine
+    from go_audio_resampler_tpu_torch.engine import streaming
     from go_audio_resampler_tpu_torch.ops import _build, fused, general, tmajor
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(
@@ -135,6 +146,7 @@ def main() -> int:
     takes_op = "op" in inspect.signature(fused.fused_resample).parameters
     k3_params = inspect.signature(general.general_resample).parameters
     tiered = "tier" in inspect.signature(fused.fused_resample).parameters
+    in_place = "head" in inspect.signature(fused.fused_resample).parameters
     if args.tier != "highest" and not tiered:
         print(f"kernel_times: {args.root} has no tier {args.tier!r}",
               file=sys.stderr)
@@ -171,6 +183,36 @@ def main() -> int:
         out[f"k2_{shape}_err"] = (y2.t() - ref).abs().max().item()
         out[f"k1_{shape}_ms"] = graph_ms(
             lambda: fused.fused_resample(x, rt, **kw))
+        if in_place:
+            # The same rows read in pieces: the streaming carry as a head
+            # beside the block, and the data cut short of a zero tail (a
+            # one-shot's flush), each against the whole row's bits.
+            c = eng._band.carry
+            head, body = x[:, :c].contiguous(), x[:, c:].contiguous()
+            out[f"cat_{shape}_ms"] = graph_ms(
+                lambda: torch.cat([head, body], dim=1))
+            out[f"k1_{shape}_head_packed_equal"] = torch.equal(
+                fused.fused_resample(body, rt, head=head, **kw), y1)
+            out[f"k1_{shape}_head_packed_ms"] = graph_ms(
+                lambda: fused.fused_resample(body, rt, head=head, **kw))
+            if hasattr(streaming, "_next_carry"):
+                # laid out as the streaming step leaves its carry
+                laid = streaming._next_carry(head, body)
+                head = laid.copy_(head)
+            need = (n_frames - 1) * ipx + wx
+            cut = x[:, :need - ipx // 2 - 1].contiguous()
+            zeroed = torch.cat([cut, torch.zeros_like(x[:, cut.shape[1]:])],
+                               dim=1)
+            y_tail = fused.fused_resample(zeroed, rt, **kw)
+            out[f"k1_{shape}_head_equal"] = torch.equal(
+                fused.fused_resample(body, rt, head=head, **kw), y1)
+            out[f"k1_{shape}_tail_equal"] = torch.equal(
+                fused.fused_resample(cut, rt, width=width, **kw), y_tail)
+            out[f"k1_{shape}_head_ms"] = graph_ms(
+                lambda: fused.fused_resample(body, rt, head=head, **kw))
+            out[f"k1_{shape}_tail_ms"] = graph_ms(
+                lambda: fused.fused_resample(cut, rt, width=width, **kw))
+            del head, body, cut, zeroed
         out[f"k2_{shape}_ms"] = graph_ms(
             lambda: tmajor.fused_resample_tmajor(xt, r, **kw))
         if bf16:
@@ -187,6 +229,25 @@ def main() -> int:
             out[f"matmul_bf16_k2_{shape}_ms"] = graph_ms(
                 lambda: torch.matmul(rbt, frames_t), reps=5, iters=5)
             del xb, frames, frames_t
+    # K1 alone, with no head and data as wide as its frames, at the 2x
+    # prestage's shape (convolve._conv_banded: 256 streams, 2 phases of
+    # 166 taps at stride 1 in periods of 128, R_t [293, 256], 16 frames).
+    from go_audio_resampler_tpu_torch.ops import convolve
+    rt, _ = convolve.band_matrix(
+        torch.randn((2, 166), generator=gen, device="cuda"), 128, 1,
+        torch.float32, "cuda")
+    kw = dict(ipx=128, wx=293, p2=256, n_frames=16, **tier)
+    if takes_op:
+        from go_audio_resampler_tpu_torch.ops import banded
+        kw["op"] = banded.prepare(rt, **tier)
+    x = torch.randn((256, 2213), generator=gen, device="cuda")
+    y1 = fused.fused_resample(x, rt, **kw)
+    ref = fused.fused_resample_reference(
+        x, rt, ipx=128, wx=293, p2=256, n_frames=16, **tier)
+    saved["k1_prestage"] = y1.cpu()
+    out["k1_prestage_err"] = (y1 - ref).abs().max().item()
+    out["k1_prestage_ms"] = graph_ms(
+        lambda: fused.fused_resample(x, rt, **kw))
     for shape in K3_SHAPES:
         starts, m, bands, wgs = k3_operands(shape)
         _, w_band, tile = m.shape

@@ -219,9 +219,10 @@ def _tf32_trunc(a: np.ndarray) -> np.ndarray:
 
 
 def emulate_kernel(data, r_t, *, ipx, wx, p2, n_frames, op=None,
-                   tier="highest"):
+                   tier="highest", head=None, width=None):
     """The kernels' arithmetic at the 'highest' tier in numpy, float32 in
-    and out: signal limbs (hi rounded to TF32, lo the remainder as the
+    and out, over K1's virtual rows ``head ++ data ++ zeros``
+    (``fused.virtual_row``): signal limbs (hi rounded to TF32, lo the remainder as the
     tensor cores read it), R's prepared limbs with B zero outside each n8 block's band, per
     column tile the union band cut into ``split`` parts, and per part
     stages of STAGE_KSTEPS k-steps, each starting from zero, of three
@@ -232,6 +233,7 @@ def emulate_kernel(data, r_t, *, ipx, wx, p2, n_frames, op=None,
     s = data.shape[0]
     r32 = r_t.float()
     op = banded.prepare(r32, 'highest')
+    data = fused.virtual_row(data, head, width)
     frames = gather_windows(data.float(), n_frames, ipx, wx).numpy()
     m = s * n_frames
     ks_total, nb_total = -(-wx // 8), -(-p2 // 8)

@@ -84,10 +84,10 @@ def test_kernel_matches_plain_version(cuda, s, nf, rates_q):
 @pytest.mark.cuda
 @pytest.mark.parametrize("offset", [1, 2, 3])
 def test_kernels_take_rows_that_start_off_a_16_byte_boundary(cuda, offset):
-    """K1 stages 16-byte chunks only where the data is 16-byte aligned;
-    a contiguous view that starts ``offset`` floats into its storage goes
-    through its 4-byte copies, with the same bits.  K2 likewise where the
-    row stride is not a multiple of 4 floats."""
+    """K1 stages 16-byte chunks from each row's own 16-byte boundary: a
+    contiguous view that starts ``offset`` floats into its storage gives
+    the bits of an aligned copy.  K2 stages 4 bytes at a time where the
+    row stride is not a multiple of 4 floats, with the same bits."""
     rt, ipx, wx, p2 = _operator(PLANS[0], False, cuda)
     kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=9,
               op=banded.prepare(rt, tier="highest"), tier="highest")
@@ -137,9 +137,72 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fused.fused_resample(x, rt.cpu(), **kw)
     with pytest.raises(ValueError, match="need data.shape"):
         fused.fused_resample(x[:, 1:].contiguous(), rt, **kw)
+    with pytest.raises(ValueError, match="need width"):
+        fused.fused_resample(x, rt, width=15 * ipx + wx - 1, **kw)
+    with pytest.raises(ValueError, match="need width"):
+        fused.fused_resample(x[:, 100:], rt, head=99, **kw)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fused.fused_resample(x, rt, head=torch.zeros((2, 3)), **kw)
     with pytest.raises(ValueError, match="op=banded.prepare"):
         fused.fused_resample(x, rt, **kw)             # R not prepared
     assert fused.launches == before
+
+
+def _rows_at(s, n, offset, pad, device, seed):
+    """[s, n] float32 rows at row stride n + pad (0 with pad None: one row
+    broadcast), starting ``offset`` floats into their storage."""
+    ld = 0 if pad is None else n + pad
+    store = _data(1, offset + max(s * ld, n), device, seed).reshape(-1)
+    return store[offset:].as_strided((s, n), (ld, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["highest", "high", "default"])
+@pytest.mark.parametrize("which", ["main", "decim"])
+@pytest.mark.parametrize("c", [0, 147, 294])
+def test_k1_reads_head_data_and_zeros_in_place(cuda, tier, which, c):
+    """K1 with ``head`` and ``width`` equals K1 on the materialised row
+    head ++ data ++ zeros, bit for bit, at the main operator (split 1) and
+    the decimation operator (split 8): heads of 0, 147 and 294 samples
+    (294: the CD->DAT carry) as zeros, as a tensor off the data's skew and
+    as one laid out at it (``streaming._next_carry``), so frames across
+    the head's end; data that ends mid-frame and mid-chunk, before the
+    last frames start, that covers the frames, and that runs past them;
+    data and head 1-3 floats off a 16-byte boundary at row strides not a
+    multiple of 4, and one row broadcast.  ``inplace_launches`` counts the
+    launches with a head or a zero tail, and nothing else."""
+    rt, ipx, wx, p2 = (_decim_operator(cuda) if which == "decim"
+                       else _operator(PLANS[0], False, cuda))
+    op = banded.prepare(rt, tier)
+    assert op.split == (8 if which == "decim" else 1)
+    s, nf = 37, 5
+    width = (nf - 1) * ipx + wx
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=nf, op=op, tier=tier)
+    # zeros past the data; the last two: the last frame starts 2 taps past
+    # it, and the last two frames start past it
+    for tail in (0, 1, 3, ipx // 2 + 2, ipx + 5, -7, wx + 2, wx + ipx + 3):
+        n = width - c - tail
+        for offset, pad in ((0, 0), (1, 3), (2, 1), (3, 6), (1, None)):
+            data = _rows_at(s, n, offset, pad, cuda, offset + abs(tail))
+            off_skew = _rows_at(s, c, (offset + 1) % 4, (pad or 0) + 1, cuda,
+                                7 + abs(tail))
+            at_skew = streaming._next_carry(off_skew, data).copy_(off_skew)
+            heads = [None] if c == 0 else [c, off_skew, at_skew]
+            for head in heads:
+                row = fused.virtual_row(data, head, width).contiguous()
+                want = fused.fused_resample(row, rt, **kw)
+                before = (fused.launches, fused.inplace_launches)
+                got = fused.fused_resample(data, rt, head=head, width=width,
+                                           **kw)
+                engaged = int(c > 0 or tail > 0)
+                assert (fused.launches, fused.inplace_launches) == (
+                    before[0] + 1, before[1] + engaged)
+                label = (tail, offset, pad, type(head).__name__)
+                assert torch.equal(got, want), label
+        plain = {k: v for k, v in kw.items() if k != "op"}
+        ref = fused.fused_resample_reference(data, rt, head=head, width=width,
+                                             **plain)
+        assert _rel_err(got, ref) <= TOL, tail
 
 
 @pytest.mark.cuda

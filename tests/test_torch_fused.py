@@ -99,6 +99,10 @@ def test_wrapper_on_cpu_is_the_plain_version():
     (dict(n_frames=17), "need data.shape"),
     (dict(wx=300), "r_t is"),
     (dict(ipx=0), "ipx=0"),
+    (dict(head=3, width=2000), "need width"),
+    (dict(n_frames=17, head=torch.zeros((2, 100))), "need width"),
+    (dict(head=torch.zeros((3, 4))), "head"),
+    (dict(head=-1), "zeros"),
 ])
 def test_wrapper_rejects_bad_shapes(kw, match):
     rt, ipx, wx, p2 = _operator(PLANS[0])
@@ -107,6 +111,42 @@ def test_wrapper_rejects_bad_shapes(kw, match):
     x = torch.zeros((2, 15 * ipx + wx))
     with pytest.raises(ValueError, match=match):
         fused.fused_resample(x, torch.zeros((wx, p2)), **args)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("c,head,extra", [
+    (0, "none", 0), (0, "none", 40), (0, "none", -30), (294, "zeros", 0),
+    (294, "tensor", 0), (147, "tensor", 61), (147, "tensor", -100),
+    (294, "zeros", 53),
+])
+def test_virtual_row_is_the_cat_it_replaces(c, head, extra, dtype):
+    """The plain version's virtual row ``head ++ data ++ zeros`` of
+    ``width`` columns equals the ``torch.cat`` of its pieces (the carry or
+    the ``lam`` zeros, the data, the flush tail's zeros), and the wrapper
+    given the pieces equals the plain version on that ``cat``, bit for
+    bit."""
+    rt, ipx, wx, p2 = _operator(PLANS[0])
+    rng = np.random.default_rng(c + abs(extra))
+    n = 15 * ipx + wx - c + max(extra, 0) - 1
+    data = torch.from_numpy(rng.normal(size=(3, n)).astype(dtype))
+    h = {"none": None, "zeros": c,
+         "tensor": torch.from_numpy(rng.normal(size=(3, c)).astype(dtype))
+         }[head]
+    zeros = torch.zeros((3, c), dtype=data.dtype)
+    joined = torch.cat([h if head == "tensor" else zeros, data], dim=1)
+    width = c + n + extra
+    want = torch.cat([joined, torch.zeros((3, max(extra, 0)),
+                                          dtype=data.dtype)], dim=1)[:, :width]
+    got = fused.virtual_row(data, h, width)
+    assert got.dtype == data.dtype and torch.equal(got, want)
+    assert torch.equal(fused.virtual_row(data, h), joined)
+    nf = (width - wx) // ipx + 1
+    r = torch.from_numpy(rt.astype(dtype))
+    kw = dict(ipx=ipx, wx=wx, p2=p2, n_frames=nf, tier="highest")
+    y = fused.fused_resample(data, r, head=h, width=width, **kw)
+    assert torch.equal(y, fused.fused_resample_reference(want, r, **kw))
+    if head == "none" and extra <= 0:
+        assert fused.virtual_row(data, h, width).data_ptr() == data.data_ptr()
 
 
 def test_gather_windows_matches_reference():

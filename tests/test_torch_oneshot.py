@@ -188,6 +188,44 @@ def test_each_topology_goes_through_its_kernel(monkeypatch, name, wrapper):
     assert calls == {k: int(k == wrapper) for k in calls}
 
 
+@pytest.mark.parametrize("rates_q,n", [
+    ((48000, 16000, 3, {}), 2000),                         # decimation
+    ((48000, 16000, 3, {}), 7),
+    ((44100, 48000, 3, {}), 2000),                         # rational
+    ((48000, 44100, 3, {"strict_antialias": True}), 1500),  # lam head
+])
+def test_k1_reads_the_callers_input_in_place(monkeypatch, rates_q, n):
+    """``_banded_apply`` (the rational and the strict-antialias paths) and
+    the decimation branch hand K1 the caller's own tensor, its storage and
+    not a padded copy: the strict prefilter's ``lam`` context goes as a
+    head of zeros and the flush tail as the width.  The output equals K1's
+    on the padded copy it replaces, bit for bit."""
+    _, tp = _plans(rates_q)
+    x = torch.from_numpy(np.random.default_rng(n).normal(size=(2, n)))
+    aux = toneshot._oneshot_aux(tp, n, torch.float64, "cpu", "highest")
+    r_t, ipx, _, lam = aux
+    wx, p2 = r_t.shape
+    seen, real = [], fused.fused_resample
+
+    def spy(data, r, **kw):
+        seen.append((data, kw))
+        return real(data, r, **kw)
+
+    monkeypatch.setattr(fused, "fused_resample", spy)
+    y = toneshot._oneshot_apply(tp, x, aux, tier="highest")
+    assert len(seen) == 1
+    data, kw = seen[0]
+    nf = -(-tp.lengths.canonical(n) // p2)
+    assert data is x and data.data_ptr() == x.data_ptr()
+    assert (kw["head"], kw["width"]) == (lam or None, (nf - 1) * ipx + wx)
+    assert lam == (245 if rates_q[3] else 0)
+    padded = toneshot._pad_right(toneshot._pad(x, lam, 0),
+                                 (nf - 1) * ipx + wx)
+    want = fused.fused_resample_reference(padded, r_t, ipx=ipx, wx=wx, p2=p2,
+                                          n_frames=nf, tier="highest")
+    assert torch.equal(y, want[:, :tp.lengths.canonical(n)])
+
+
 @pytest.mark.parametrize("name", list(TOPOLOGIES))
 def test_aux_holds_every_operator(monkeypatch, name):
     """``_oneshot_aux`` designs and uploads every operator, so that

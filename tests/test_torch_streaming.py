@@ -413,7 +413,8 @@ def test_process_steps_through_the_fused_wrapper(monkeypatch):
     real = fused.fused_resample
 
     def spy(data, r_t, **kw):
-        calls.append((tuple(data.shape), kw["n_frames"]))
+        calls.append((tuple(data.shape), tuple(kw["head"].shape),
+                      kw["n_frames"]))
         return real(data, r_t, **kw)
 
     monkeypatch.setattr(fused, "fused_resample", spy)
@@ -421,8 +422,48 @@ def test_process_steps_through_the_fused_wrapper(monkeypatch):
     te.process(np.zeros((BATCH, 9 * te.block), np.float32))
     te.flush()
     nf = te.block // 147
-    assert calls[0] == ((BATCH, te._band.carry + 8 * te.block), 8 * nf)
-    assert calls[1] == ((BATCH, te._band.carry + te.block), nf)
+    carry = (BATCH, te._band.carry)
+    assert calls[0] == ((BATCH, 8 * te.block), carry, 8 * nf)
+    assert calls[1] == ((BATCH, te.block), carry, nf)
+
+
+@pytest.mark.parametrize("frames", [1, 2, 8])
+def test_fused_banded_step_reads_carry_and_block_in_place(monkeypatch,
+                                                          frames):
+    """The step hands K1 the block itself and the carry as its head (the
+    same storage, no ``torch.cat``), and its new carry equals the parent
+    formula ``cat([carry, x])[:, b:]``, for blocks shorter than the carry
+    (one frame), as long as it (two) and longer, in a copy of its own laid
+    out for K1's 16-byte copies beside a block like ``x``: each row C
+    floats before the block's row modulo 4, the rows the block's stride
+    apart modulo 4."""
+    _, te = _engines(PLANS[0], np.float32)
+    r_t, ipx, wx, p2, c, op = te._band
+    b = frames * ipx
+    rng = np.random.default_rng(frames)
+    carry = torch.from_numpy(rng.normal(size=(BATCH, c)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(BATCH, b)).astype(np.float32))
+    assert (c, b < c, b == c) == (294, frames == 1, frames == 2)
+    seen, real = [], fused.fused_resample
+
+    def spy(data, r, **kw):
+        seen.append((data, kw["head"]))
+        return real(data, r, **kw)
+
+    monkeypatch.setattr(fused, "fused_resample", spy)
+    new, y, n = streaming._fused_banded_step(r_t, carry, x, ipx=ipx, wx=wx,
+                                             p2=p2, op=op, tier="highest")
+    assert len(seen) == 1 and seen[0][0] is x and seen[0][1] is carry
+    joined = torch.cat([carry, x], dim=1)
+    assert torch.equal(new, joined[:, b:]) and new.stride(1) == 1
+    assert (new.data_ptr() - x.data_ptr()) // 4 % 4 == -c % 4
+    assert (new.stride(0) - x.stride(0)) % 4 == 0
+    want = fused.fused_resample_reference(joined, r_t, ipx=ipx, wx=wx, p2=p2,
+                                          n_frames=frames, tier="highest")
+    assert n == frames * p2 and torch.equal(y, want)
+    x.zero_()
+    carry.zero_()
+    assert torch.equal(new, joined[:, b:])
 
 
 # -- guards --------------------------------------------------------------------
